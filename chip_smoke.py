@@ -6,17 +6,36 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernel (``src/repro_torch/csrc/dc_pairs.cu``) with nvcc;
-3. the kernel against its plain PyTorch version on the card, bit for bit,
-   over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
+2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu`` and
+   ``flash_attention.cu``) with nvcc, one process each, at once; log what
+   ``ptxas`` says of registers and spills;
+3. the DC pair scan against its plain PyTorch version on the card, bit for
+   bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros; then its time, the plain version's time and its bound at
    n = 131,072 on the full worklist;
-4. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
+4. flash attention against its plain version on the card (float32
+   ``atol=rtol=2e-5``, bf16 ``atol=3e-2``: the reference tests'
+   tolerances) over qwen3-4b's shapes (contiguous, and as the (b, s, h, d)
+   views the model passes), float32 I/O, a 1024 window at
+   S 4096, non-causal Sq 1 and 77 against Sk 1000, D 64, group sizes 1, 4
+   and 8, and a uniform V; then its time, the plain version's, the
+   ``scaled_dot_product_attention`` yardstick's and its bound at the
+   prefill shape B 2 x S 2048;
+5. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
    against the same engine on the CPU at 65,536 rows, query by query; then
    SSB lineorder at scale factor 1 (6,000,000 rows), 20 range queries;
-5. the DC path (fig12's price/discount DC at 2% violations) at 131,072
+6. the DC path (fig12's price/discount DC at 2% violations) at 131,072
    rows, once through the kernel and once with the plain version forced,
-   answers and overlays bit-identical, kernel launches counted.
+   answers and overlays bit-identical, kernel launches counted;
+7. qwen3-4b at its published width (36 layers, d_model 2560, vocab
+   151,936) with weights from a seed: in float32 compute, prefill(256) then
+   decode(token 256) against forward(257) at the last position; in bf16
+   compute, ``prefill`` of B 2 x 2048 tokens (exactly 36 flash launches)
+   and 32 greedy ``decode_step``s, and the same prefill through the plain
+   attention version; then ``torch.profiler``'s device time of that prefill
+   and of four more decode steps on the main run's cache;
+8. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
+   8-16 prompt tokens, 16 new tokens each, through 4 slots.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -31,6 +50,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -43,6 +63,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # SM and would halve the rate again.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 132 * 128 * 1.98e9
+# Attention's products are bf16 at the main path's shapes: the tensor cores'
+# dense bf16 rate (NVIDIA data sheet, H100 SXM).
+PEAK_BF16_FLOPS = 989e12
+
+F32_TOL = dict(atol=2e-5, rtol=2e-5)  # the reference tests' float32 tolerance
+BF16_TOL = dict(atol=3e-2, rtol=0.0)  # and their bf16 tolerance
+LM_BATCH, LM_PROMPT, LM_DECODE = 2, 2048, 32
+# decode steps profiled after the main run, on its cache (one warm-up more)
+LM_PROFILE_STEPS = 4
+LM_CHECK_PROMPT = 256
+# Prefill logits through the kernel against the plain attention version:
+# both are bf16 networks whose attention outputs round apart, so logits
+# agree within 5% of the largest logit magnitude.
+LM_PLAIN_REL_TOL = 0.05
+# prefill(s) + decode against forward(s + 1) in float32 compute: the
+# reference's tolerance (tests/test_arch_smoke.py)
+LM_F32_TOL = dict(atol=2e-3, rtol=2e-3)
+ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_NEW = 8, 4, 16
 
 FD_SMALL_ROWS = 65_536
 SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS = 6_000_000, 1_500_000, 2_000
@@ -261,6 +299,107 @@ def scan_bound(l_cols, r_cols, ops, rs, cs, res, block=256):
     return t_bytes, "bytes", detail
 
 
+# ------------------------------------------------------------------ phase 4
+def attention_bound(q, k, causal, window):
+    """Least time of one attention call on an H100: the larger of its bf16
+    FLOPs (4 D per visible query-key pair and head: the QK^T and PV
+    products, counted over the pairs this call's mask leaves) over the
+    tensor cores' rate and its bytes (q, k, v read once, o written once)
+    over HBM bandwidth."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qpos = range(sq)
+    pairs = 0
+    for i in qpos:
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    flops = 4 * d * pairs * b * hq
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * q.element_size()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    detail = f"{flops:.4e} flops, {nbytes} bytes"
+    if t_ops >= t_bytes:
+        return t_ops, "operations", detail
+    return t_bytes, "bytes", detail
+
+
+def flash_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(dtype, b, hq, hkv, sq, sk, d):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+    def bshd_views(dtype, b, hq, hkv, s, d):
+        """q, k, v as ``attend_full`` passes them: (b, h, s, d) views of
+        (b, s, h, d) tensors, read through their strides."""
+        return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                for h in (hq, hkv, hkv)]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = LM_BATCH, LM_PROMPT
+    prefill_case = qkv(bf16, B, 32, 8, S, S, 128)
+    cases = [
+        ("qwen3-4b prefill B2 Hq32 Hkv8 D128 S2048 bf16 causal", prefill_case, True, None),
+        ("(b,s,h,d) views B2 Hq32 Hkv8 D128 S2048 bf16 causal",
+         bshd_views(bf16, B, 32, 8, S, 128), True, None),
+        ("f32 I/O Hq32 Hkv8 D128 S1024 causal", qkv(f32, 1, 32, 8, 1024, 1024, 128), True, None),
+        ("window 1024 at S4096 bf16", qkv(bf16, 1, 8, 2, 4096, 4096, 128), True, 1024),
+        ("non-causal Sq1 Sk1000 f32", qkv(f32, 2, 32, 8, 1, 1000, 128), False, None),
+        ("non-causal Sq77 Sk1000 f32", qkv(f32, 2, 32, 8, 77, 1000, 128), False, None),
+        ("D64 f32 S512 causal", qkv(f32, 2, 4, 4, 512, 512, 64), True, None),
+        ("group 1 (Hq8 Hkv8) bf16 S512", qkv(bf16, 2, 8, 8, 512, 512, 128), True, None),
+        ("group 4 (Hq32 Hkv8) bf16 S512", qkv(bf16, 2, 32, 8, 512, 512, 128), True, None),
+        ("group 8 (Hq8 Hkv1) bf16 S512", qkv(bf16, 2, 8, 1, 512, 512, 128), True, None),
+    ]
+    ones = torch.ones((1, 1, 128, 32), device=dev)
+    cases.append(("uniform V", [ones, ones, torch.full_like(ones, 3.0)], True, None))
+
+    err = 0.0
+    fa.reset_launch_counts()
+    for name, (q, k, v), causal, window in cases:
+        got = kops.flash_attention(q, k, v, causal=causal, window=window)
+        with fa.plain_version():
+            want = kops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            fail(f"flash {name}: {got.dtype}{tuple(got.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"flash {name}: non-finite output")
+        e = max_abs_err(got.float(), want.float())
+        tol = F32_TOL if q.dtype == f32 else BF16_TOL
+        if name == "uniform V":
+            tol = dict(atol=0.0, rtol=1e-6)  # the reference test's own
+            want = torch.full_like(got, 3.0)
+        try:
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        except AssertionError as exc:
+            fail(f"flash {name}: kernel differs from the plain version: {exc}")
+        err = max(err, e)
+        log(f"flash == plain: {name}: max abs err {e:.3e} (tolerance {tol})")
+    if fa.LAUNCHES["flash_attention"] != len(cases):
+        fail(f"{fa.LAUNCHES['flash_attention']} flash launches for {len(cases)} cases")
+
+    q, k, v = prefill_case
+    ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True), 10)
+    with fa.plain_version():
+        plain_ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True), 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    bound_ms, bound_by, detail = attention_bound(q, k, True, None)
+    log(f"flash_attention B{B} Hq32 Hkv8 D128 S{S} bf16 causal: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {detail}); kernel / bound {ms / bound_ms:.1f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # ------------------------------------------------------------- Daisy helpers
 def daisy_state(daisy, result, rules):
     """Host copy of everything a query leaves behind, for exact comparison."""
@@ -309,7 +448,7 @@ def range_queries(col, edges, as_float):
     ]
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phase 5
 def fd_workload(n, n_orderkeys, n_suppkeys, device):
     from repro_torch.core.constraints import FD
     from repro_torch.core.relation import make_relation
@@ -381,7 +520,7 @@ def fd_phase(dev):
         f"mean {np.mean(times) * 1e3:.3f} ms, modes {modes}")
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
 def dc_workload(device):
     import numpy as np
 
@@ -444,6 +583,203 @@ def dc_phase(dev):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+def device_profile(fn, reps: int):
+    """Kernel time on the card per call of ``fn`` (``torch.profiler``'s CUDA
+    activity, summed over kernels) and the five largest kernels by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -dev_us(e))[:5]
+    return busy_ms, [(e.key[:70], round(dev_us(e) / 1e3 / reps, 3)) for e in top]
+
+
+def lm_phase(dev):
+    """qwen3-4b at its published width, weights from seed 0 on the card.
+    Returns the flash launches of the main path's run and the bf16 compute
+    copy of the weights (for the engine)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.params import cast_params, init_params
+
+    cfg = get_config("qwen3-4b").canonicalize(tp=1)
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads, cfg.hd) != (
+            36, 2560, 151_936, 32, 8, 128):
+        fail(f"qwen3-4b config is not the published one: {cfg}")
+    t0 = time.perf_counter()
+    master = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(master))
+    log(f"qwen3-4b: {n_params} parameters (param_count {cfg.param_count()}), float32 "
+        f"master made on the card in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # float32 compute: prefill(s) + decode(token s) == forward(s + 1)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = cast_params(master, cfg32)
+    s = LM_CHECK_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, s + 1), generator=gen, device=dev)
+    full, _ = tt.forward(p32, cfg32, {"tokens": toks})
+    _, cache = tt.prefill(p32, cfg32, {"tokens": toks[:, :s]}, s_max=s + 8,
+                          cache_dtype=torch.float32)
+    dec, _ = tt.decode_step(p32, cfg32, cache, toks[:, s:s + 1])
+    torch.cuda.synchronize()
+    e = max_abs_err(dec, full[:, -1])
+    try:
+        torch.testing.assert_close(dec, full[:, -1], **LM_F32_TOL)
+    except AssertionError as exc:
+        fail(f"f32 prefill({s}) + decode != forward({s + 1}): {exc}")
+    log(f"qwen3-4b f32: prefill({s}) + decode == forward({s + 1}) at the last position, "
+        f"max abs err {e:.3e} (tolerance {LM_F32_TOL}; logits up to "
+        f"{float(full[:, -1].abs().max()):.3f})")
+    del full, cache, dec, p32
+
+    params = cast_params(master, cfg)  # the bf16 compute copy, once
+    del master
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"bf16 compute copy made; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    s_max = LM_PROMPT + LM_DECODE + LM_PROFILE_STEPS + 1
+    tt.prefill(params, cfg, {"tokens": prompt[:, :128]}, s_max=160)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: prefill, then greedy decode, counts read right after
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = fa.LAUNCHES["flash_attention"]
+    first = logits.clone()
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        tok = logits.argmax(-1, keepdim=True)
+        out.append(tok)
+        logits, cache = tt.decode_step(params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+    launches = fa.LAUNCHES["flash_attention"]
+    if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
+        fail(f"prefill launched flash {prefill_launches} times and the run {launches}, "
+             f"not once a layer ({cfg.n_layers})")
+    if first.shape != (LM_BATCH, cfg.vocab_size) or first.dtype != torch.float32:
+        fail(f"prefill logits {first.dtype}{tuple(first.shape)}")
+    if not bool(torch.isfinite(first).all()) or not bool(torch.isfinite(logits).all()):
+        fail("non-finite logits")
+    if cache["t"] != LM_PROMPT + LM_DECODE:
+        fail(f"cache t {cache['t']} after {LM_DECODE} decode steps")
+    toks_out = torch.cat(out, dim=1)
+    log(f"qwen3-4b bf16 prefill B{LM_BATCH} x {LM_PROMPT}: {prefill_ms:.3f} ms, "
+        f"{prefill_launches} flash launches; {LM_DECODE} greedy decode steps "
+        f"{decode_ms:.3f} ms/token (batch {LM_BATCH}); tokens of row 0 "
+        f"{toks_out[0, :8].tolist()}...")
+
+    with fa.plain_version():
+        t0 = time.perf_counter()
+        want, _ = tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max)
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    e = max_abs_err(first, want)
+    scale = float(want.abs().max())
+    agree = float((first.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"prefill through the kernel vs the plain version ({plain_prefill_ms:.3f} ms): "
+        f"max abs err {e:.4f} on logits up to {scale:.3f} (tolerance "
+        f"{LM_PLAIN_REL_TOL} x that); argmax agreement {agree:.2f}")
+    if not e <= LM_PLAIN_REL_TOL * scale:
+        fail(f"prefill logits through the kernel differ from the plain version by {e}")
+    del want
+
+    # where the device time goes, against the host-clock times above
+    def report(what, wall_ms, fn, reps):
+        busy, top = device_profile(fn, reps)
+        if busy <= 0:
+            log(f"{what} profile: device time not measured (the profiler saw no kernel)")
+        else:
+            log(f"{what} profile: kernels busy {busy:.3f} ms of {wall_ms:.3f} ms "
+                f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); top {top}")
+
+    report("prefill", prefill_ms,
+           lambda: tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max), 1)
+    # greedy decode goes on from the main run, on its cache: the same
+    # s_max slots that every timed step attended over
+    state = {"logits": logits}
+
+    def step():
+        tok = state["logits"].argmax(-1, keepdim=True)
+        state["logits"], _ = tt.decode_step(params, cfg, cache, tok)
+
+    t_from = cache["t"]
+    report(f"decode step (t {t_from + 1}..{t_from + LM_PROFILE_STEPS} of {s_max} slots)",
+           decode_ms, step, LM_PROFILE_STEPS)
+    if cache["t"] != t_from + LM_PROFILE_STEPS + 1:
+        fail(f"cache t {cache['t']} after the profiled decode steps")
+    del cache, logits, state
+    torch.cuda.empty_cache()
+    return launches, cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ------------------------------------------------------------------ phase 8
+def engine_phase(dev, cfg, params):
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(2)
+    engine = ServeEngine(cfg, params, max_batch=ENGINE_SLOTS, max_seq=128, device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new=ENGINE_NEW)
+            for i, n in enumerate(rng.integers(8, 17, ENGINE_REQUESTS))]
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    steps = 0
+    while engine.pending or any(sl is not None for sl in engine.slots):
+        engine.step()
+        steps += 1
+        if steps > 1000:
+            fail("ServeEngine did not finish in 1000 steps")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not all(r.done and len(r.out) == ENGINE_NEW for r in reqs):
+        fail(f"ServeEngine: done {[r.done for r in reqs]}, out {[len(r.out) for r in reqs]}")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out):
+        fail("ServeEngine produced a token outside the vocabulary")
+    n_new = sum(len(r.out) for r in reqs)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    log(f"ServeEngine qwen3-4b: {ENGINE_REQUESTS} requests ({n_prompt} prompt tokens, "
+        f"{n_new} generated) through {ENGINE_SLOTS} slots in {steps} steps, {dt:.3f} s: "
+        f"{n_new / dt:.1f} generated tokens/s, {dt / steps * 1e3:.3f} ms/step")
+
+
 def main() -> int:
     import torch
 
@@ -452,35 +788,49 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.kernels import dc_pairs
+        from repro_torch.kernels import build
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is missing ({exc})", file=sys.stderr)
         return 2
-    if not os.path.abspath(dc_pairs.__file__).startswith(os.path.join(HERE, "src") + os.sep):
+    if not os.path.abspath(build.__file__).startswith(os.path.join(HERE, "src") + os.sep):
         print(f"chip_smoke: repro_torch imported from outside this checkout "
-              f"({dc_pairs.__file__})", file=sys.stderr)
+              f"({build.__file__})", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    path = dc_pairs.build_library(verbose_ptxas=True)
-    log(f"built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.2f} s")
-    for line in dc_pairs.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    names = ("dc_pairs", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(lambda n: build.build_library(n, verbose_ptxas=True), names))
+    log(f"built {[os.path.relpath(p, HERE) for p in paths]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in names:
+        for line in build.BUILD_LOG[name]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {name}: {line.strip()}")
 
-    measured = kernel_phase(dev)
+    dc_measured = kernel_phase(dev)
+    flash_measured = flash_phase(dev)
     fd_phase(dev)
-    launches = dc_phase(dev)
-    record = dict(
-        name="dc_pair_scan", route="cuda", source="src/repro_torch/csrc/dc_pairs.cu",
-        replaces="src/repro/kernels/dc_pairs.py:445", launches=launches,
-        library_ms=None, **measured,
-    )
-    print(json.dumps({"kernels": [record]}), flush=True)
+    dc_launches = dc_phase(dev)
+    flash_launches, cfg, params = lm_phase(dev)
+    engine_phase(dev, cfg, params)
+    records = [
+        dict(name="dc_pair_scan", route="cuda", source="src/repro_torch/csrc/dc_pairs.cu",
+             replaces="src/repro/kernels/dc_pairs.py:445", launches=dc_launches,
+             library_ms=None, **dc_measured),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:101",
+             launches=flash_launches, **flash_measured),
+    ]
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -25,27 +25,21 @@ Three pieces live here, beside each other:
   the kernel evaluates on the card).
 
 The kernel library is built with ``nvcc`` at first use into
-``repro_torch/_build/`` (git-ignored) and loaded with ``ctypes``.
+``repro_torch/_build/`` (git-ignored, ``kernels.build``) and loaded with
+``ctypes``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "dc_pairs.cu"
-BUILD_DIR = _PKG / "_build"
+from repro_torch.kernels import build
 
 MAX_ATOMS = 8
 MAX_DISTINCT = 16
@@ -343,55 +337,13 @@ class _DcArgs(ctypes.Structure):
 
 _lib = None
 _lib_lock = threading.Lock()
-BUILD_LOG = {"seconds": None, "ptxas": "", "path": None}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-    return path
-
-
-def build_library(verbose_ptxas: bool = False) -> pathlib.Path:
-    """Compile ``csrc/dc_pairs.cu`` for sm_90a into ``_build/`` (keyed by the
-    source's hash, so an edited source rebuilds) and return the path."""
-    import time
-
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libdc_pairs_{tag}.so"
-    if out.exists() and not verbose_ptxas:
-        BUILD_LOG["path"] = str(out)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE),
-    ]
-    if verbose_ptxas:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG.update(
-        seconds=time.perf_counter() - t0, ptxas=proc.stderr, path=str(out)
-    )
-    return out
 
 
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+            lib = ctypes.CDLL(str(build.build_library("dc_pairs")))
             lib.dc_pair_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             lib.dc_pair_scan_launch.restype = ctypes.c_int
             lib.dc_args_size.restype = ctypes.c_int

@@ -1,11 +1,12 @@
 """Dispatch wrappers for the port's kernels, and the DC atom encodings.
 
-The counterpart of ``repro.kernels.ops`` for the DC pair scan: the same
+The counterpart of ``repro.kernels.ops`` for the DC pair scan (the same
 ``dc_pair_scan`` signature, ``TileStats`` launch telemetry and
-exactness-proved atom encodings.  Where the reference picks its Pallas
-kernel or its jnp oracle by backend, the port picks by the device the
-tensors live on (``kernels.dc_pairs.dc_pair_scan``): the CUDA kernel on the
-card, the plain PyTorch version on the CPU.
+exactness-proved atom encodings) and for flash attention
+(``flash_attention``).  Where the reference picks its Pallas kernel or its
+jnp oracle by backend, the port picks by the device the tensors live on
+(``kernels.dc_pairs.dc_pair_scan``, ``kernels.flash_attention``): the CUDA
+kernel on the card, the plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import dc_pairs
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.dc_pairs import distinct_columns, resolve_block_ids
 
 
@@ -234,3 +236,8 @@ def decode_stat(
     else:
         dec = stat.to(orig_dtype)
     return torch.where(count > 0, dec, torch.tensor(ident, dtype=dec.dtype, device=dec.device))
+
+
+# ---------------------------------------------------------- flash attention
+# the dispatch lives beside the kernel and its plain versions
+flash_attention = _flash.flash_attention

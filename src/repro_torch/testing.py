@@ -3,7 +3,10 @@
 ``relation_from_numpy`` builds a port ``Relation`` from host arrays — the
 ``np.asarray`` of every array of a reference relation — so both packages
 start from identical state.  It takes plain numpy, never an object of the
-reference package.
+reference package.  ``tree_to_numpy`` and ``tree_paths`` carry nested
+dicts of arrays (parameters, KV caches, logits) of either package to numpy
+for comparison; ``models.params.params_from_numpy`` carries the reference's
+parameters into the port.
 """
 
 from __future__ import annotations
@@ -47,4 +50,28 @@ def relation_to_numpy(rel) -> Dict[str, object]:
         name: {k: host(v) for k, v in getattr(rel, name).items()} for name in _FIELDS
     }
     out["valid"] = host(rel.valid)
+    return out
+
+
+def tree_to_numpy(tree):
+    """Host numpy copy of a nested dict of arrays of either package (the
+    JAX reference's or the port's); bf16 tensors of the port come back as
+    float32, Python scalars stay as they are."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(tree, (int, float)):
+        return tree
+    return np.array(tree)  # a writable copy
+
+
+def tree_paths(tree, prefix: str = "") -> Dict[str, object]:
+    """Flatten a nested dict into ``{"a.b.c": leaf}``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out: Dict[str, object] = {}
+    for k, v in tree.items():
+        out.update(tree_paths(v, f"{prefix}.{k}" if prefix else k))
     return out

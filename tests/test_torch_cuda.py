@@ -1,12 +1,14 @@
-"""The port on the card: the CUDA ``dc_pair_scan`` against its plain
-PyTorch version, and the whole ``Daisy`` on the card against the same
-engine on the CPU.  Every test is marked ``gpu`` and skips without a CUDA
-device.  The file imports no JAX, so it runs where JAX is not installed:
+"""The port on the card: the CUDA ``dc_pair_scan`` and ``flash_attention``
+kernels against their plain PyTorch versions, the whole ``Daisy`` on the
+card against the same engine on the CPU, and the LM's prefill through the
+flash kernel against the same prefill through the plain version.  Every
+test is marked ``gpu`` and skips without a CUDA device.  The file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
 (``--noconftest``: the shared conftest builds reference relations with
-JAX.)  Comparisons are exact."""
+JAX.)  DC comparisons are exact; attention is compared at the reference
+tests' tolerances (float32 ``atol=rtol=2e-5``, bf16 ``atol=3e-2``)."""
 
 import numpy as np
 import pytest
@@ -19,8 +21,12 @@ from repro_torch.core.operators import Pred, Query
 from repro_torch.core.relation import make_relation
 from repro_torch.data.generators import inject_dc_errors, inject_fd_errors, ssb_lineorder
 from repro_torch.kernels import dc_pairs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
 from repro_torch.testing import relation_to_numpy
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as tt
+from repro_torch.models.params import cast_params, init_params
 
 torch.set_num_threads(1)
 
@@ -90,3 +96,80 @@ def test_daisy_on_card_matches_cpu(card):
                 np.testing.assert_array_equal(a[field][k].view(np.uint8),
                                               b[field][k].view(np.uint8))
     assert dc_pairs.LAUNCHES["dc_pair_scan"] > before
+
+
+def _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=card).to(dtype)
+            for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,sq,sk,d,causal,window", [
+    (torch.bfloat16, 32, 8, 256, 256, 128, True, None),   # qwen3-4b heads
+    (torch.float32, 32, 8, 256, 256, 128, True, None),
+    (torch.bfloat16, 8, 8, 300, 300, 128, True, 64),      # window, ragged S
+    (torch.float32, 4, 1, 77, 1000, 128, False, None),    # Sq != Sk
+    (torch.float32, 4, 4, 1, 1000, 64, False, None),      # D 64, one query
+    (torch.bfloat16, 8, 2, 130, 130, 256, True, None),    # D 256
+    (torch.float32, 2, 1, 40, 40, 80, True, None),        # D 80, a multiple of 8
+])
+def test_flash_kernel_matches_plain_version(card, dtype, hq, hkv, sq, sk, d, causal, window):
+    q, k, v = _qkv(card, dtype, 2, hq, hkv, sq, sk, d)
+    before = fa.LAUNCHES["flash_attention"]
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    with fa.plain_version():
+        want = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=3e-2, rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_reads_strided_views(card, dtype):
+    """q, k, v as ``attend_full`` passes them: (b, h, s, d) views of
+    (b, s, h, d) tensors, read through their strides with no copy."""
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = [torch.randn((2, 300, h, 128), generator=g, device=card).to(dtype).transpose(1, 2)
+               for h in (32, 8, 8)]
+    got = tops.flash_attention(q, k, v, causal=True)
+    with fa.plain_version():
+        want = tops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=3e-2, rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_kernel_uniform_v(card):
+    q = torch.ones((1, 1, 128, 32), device=card)
+    v = torch.full((1, 1, 128, 32), 3.0, device=card)
+    got = tops.flash_attention(q, q, v, causal=True)
+    torch.testing.assert_close(got, torch.full_like(got, 3.0), atol=0, rtol=1e-6)
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take(card):
+    q, k, v = _qkv(card, torch.float32, 1, 2, 1, 16, 16, 12)
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.flash_attention(q, k, v)
+    q, k, v = _qkv(card, torch.float16, 1, 2, 1, 16, 16, 16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tops.flash_attention(q, k, v)
+
+
+def test_prefill_on_card_matches_plain_version(card):
+    """The reduced qwen3-4b in bf16 compute: prefill through the kernel (one
+    launch a layer) against the same prefill through the plain version."""
+    cfg = get_config("qwen3-4b", reduced=True).canonicalize(tp=1)
+    params = cast_params(init_params(cfg, torch.Generator(device=card).manual_seed(0), card), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    before = fa.LAUNCHES["flash_attention"]
+    logits, cache = tt.prefill(params, cfg, {"tokens": toks})
+    assert fa.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    with fa.plain_version():
+        want, want_cache = tt.prefill(params, cfg, {"tokens": toks})
+    # bf16 activations: the two attention outputs round apart and the
+    # difference carries through the layers (the CPU parity tests' bf16
+    # tolerance); the first layer's cache precedes any attention: equal
+    torch.testing.assert_close(logits, want, atol=0.15, rtol=0)
+    assert torch.equal(cache["block_0"]["k"][0], want_cache["block_0"]["k"][0])

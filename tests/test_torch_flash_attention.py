@@ -1,0 +1,175 @@
+"""Flash attention: the port's plain PyTorch versions (what the wrapper runs
+on CPU tensors) against the reference's Pallas kernel in interpret mode,
+as ``tests/test_kernels.py`` runs it, and against the reference's jnp
+oracles where the Pallas kernel needs block multiples.
+
+Tolerances are the reference tests' own: float32 ``atol=rtol=2e-5``, bf16
+``atol=3e-2``.  The CUDA kernel itself is held against the plain version by
+``tests/test_torch_cuda.py`` (marked ``gpu``) and by ``chip_smoke.py``."""
+
+import gc
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops as tops
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+
+
+def qkv(seed, b, hq, hkv, sq, sk, d, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(dtype)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(dtype)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(dtype)
+    return q, k, v
+
+
+def port(q, k, v, **kw):
+    """The port's dispatch on CPU tensors; it must launch nothing."""
+    before = fa.LAUNCHES["flash_attention"]
+    out = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), **kw)
+    assert fa.LAUNCHES["flash_attention"] == before
+    return out
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("s", [128, 256])
+def test_causal_gqa_matches_pallas(hq, hkv, s):
+    q, k, v = qkv(hq * s, 2, hq, hkv, s, s, 64)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=True, block_q=64, block_kv=64, interpret=True)
+    got = port(q, k, v, causal=True)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_sliding_window_matches_pallas():
+    q, k, v = qkv(5, 1, 2, 2, 256, 256, 32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=True, window=64, block_q=64, block_kv=64,
+                                  interpret=True)
+    got = port(q, k, v, causal=True, window=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_noncausal_matches_pallas():
+    q, k, v = qkv(6, 1, 2, 2, 128, 128, 32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=False, block_q=64, block_kv=64, interpret=True)
+    got = port(q, k, v, causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_bf16_io_matches_pallas():
+    q, k, v = qkv(7, 1, 2, 2, 128, 128, 64)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=True, block_q=64, block_kv=64,
+                                  interpret=True)
+    # the same bf16 values on both sides
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (jq, jk, jv))
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=3e-2)
+
+
+def test_uniform_v_passes_through():
+    q = np.ones((1, 1, 128, 32), np.float32)
+    v = np.full((1, 1, 128, 32), 3.0, np.float32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(q), jnp.asarray(v),
+                                  causal=True, block_q=64, block_kv=64, interpret=True)
+    got = port(q, q, v, causal=True)
+    # the oracle normalises by a softmax whose sum is 1 only to float32
+    # rounding, so it holds 3.0 to the float32 tolerance; the kernels'
+    # acc / l holds it to 1e-6 (tests/test_kernels.py, tests/test_torch_cuda.py)
+    np.testing.assert_allclose(got.numpy(), 3.0, **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (77, 77, True, None),      # ragged S
+    (100, 100, True, 16),      # ragged S with a window
+    (1, 1000, False, None),    # Sq != Sk, non-causal (decode-like)
+    (77, 1000, False, None),
+    (40, 24, True, None),      # causal with Sq > Sk: rows past Sk see all keys
+])
+def test_ragged_and_cross_match_oracle(sq, sk, causal, window):
+    q, k, v = qkv(sq + sk, 2, 4, 2, sq, sk, 16)
+    want = ref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window)
+    got = port(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_rows_with_no_visible_key_are_zero():
+    # window 0 hides every key: the oracle's row_visible guard gives zeros
+    q, k, v = qkv(9, 1, 2, 1, 64, 64, 16)
+    want = ref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, window=0)
+    got = port(q, k, v, causal=True, window=0)
+    assert not got.numpy().any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 300), (False, None)])
+def test_long_sequences_route_to_blocked(causal, window):
+    """sq >= 1024 with sq % 512 == 0 and sk % 1024 == 0: the blocked online
+    softmax, against the reference's blocked path and its oracle."""
+    q, k, v = qkv(11, 1, 2, 1, 1024, 1024, 16)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want = ref.attention_blocked(jq, jk, jv, causal=causal, window=window)
+    oracle = ref.attention(jq, jk, jv, causal=causal, window=window)
+    got = port(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
+    blocked = fa.attention_blocked(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   causal=causal, window=window)
+    assert torch.equal(got, blocked)
+
+
+def test_explicit_scale():
+    q, k, v = qkv(12, 1, 4, 2, 64, 64, 32)
+    want = ref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, scale=0.3)
+    got = port(q, k, v, causal=True, scale=0.3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_plain_versions_agree():
+    q, k, v = (torch.from_numpy(x) for x in qkv(13, 2, 4, 2, 512, 1024, 32))
+    a = fa.attention(q, k, v, causal=False, window=None)
+    b = fa.attention_blocked(q, k, v, causal=False, window=None)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **F32)
+
+
+def test_bad_shapes_raise():
+    q = torch.zeros(1, 3, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k, k)
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, 8, 8))
+
+
+def test_launch_counter_starts_at_zero_after_reset():
+    fa.LAUNCHES["flash_attention"] = 5
+    fa.reset_launch_counts()
+    assert fa.LAUNCHES == {"flash_attention": 0}
