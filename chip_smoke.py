@@ -6,14 +6,21 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu`` and
-   ``flash_attention.cu``) with nvcc, one process each, at once; log what
-   ``ptxas`` says of registers and spills;
+2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu``,
+   ``flash_attention.cu`` and ``semijoin.cu``) with nvcc, one process each,
+   at once; log what ``ptxas`` says of registers and spills;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros; then its time, the plain version's time and its bound at
    n = 131,072 on the full worklist;
-4. flash attention against its plain version on the card (float32
+4. the DC role scan (the same kernel with role t2 compiled out) against its
+   plain version, bit for bit, over the same kinds of cases; then its time,
+   the plain version's and its bound on fig12's DC at n = 131,072, one role;
+5. the semijoin kernel against its plain version, bit for bit, at the
+   reference kernel tests' shapes and with an all-false key mask; then its
+   time, the plain version's, ``torch.isin``'s and its bound at SF1 size
+   (6,000,000 lineorder orderkeys against 75,000 keys);
+6. flash attention against its plain version on the card (float32
    ``atol=rtol=2e-5``, bf16 ``atol=3e-2``: the reference tests'
    tolerances) over qwen3-4b's shapes (contiguous, and as the (b, s, h, d)
    views the model passes), float32 I/O, a 1024 window at
@@ -21,26 +28,38 @@ Phases, each of which must pass or the script exits non-zero:
    and 8, and a uniform V; then its time, the plain version's, the
    ``scaled_dot_product_attention`` yardstick's and its bound at the
    prefill shape B 2 x S 2048;
-5. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
+7. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
    against the same engine on the CPU at 65,536 rows, query by query; then
    SSB lineorder at scale factor 1 (6,000,000 rows), 20 range queries;
-6. the DC path (fig12's price/discount DC at 2% violations) at 131,072
+8. the DC path (fig12's price/discount DC at 2% violations) at 131,072
    rows, once through the kernel and once with the plain version forced,
    answers and overlays bit-identical, kernel launches counted;
-7. qwen3-4b at its published width (36 layers, d_model 2560, vocab
+9. the join path (fig13's lineorder |x| suppliers on suppkey, FDs on both
+   tables): 20 range joins and the region group-by on the card against the
+   CPU at 65,536 rows, then at SF1 (6,000,000 lineorder rows, 2,000
+   suppliers) with no overflow;
+10. the offline baseline: ``OfflineCleaner.clean_all`` on the SF1 FD
+    workload, its answers equal to Daisy's on the 20 queries of phase 7
+    (the FD guarantee), then on the DC workload of phase 8 (one pair-scan
+    launch);
+11. qwen3-4b at its published width (36 layers, d_model 2560, vocab
    151,936) with weights from a seed: in float32 compute, prefill(256) then
    decode(token 256) against forward(257) at the last position; in bf16
    compute, ``prefill`` of B 2 x 2048 tokens (exactly 36 flash launches)
    and 32 greedy ``decode_step``s, and the same prefill through the plain
    attention version; then ``torch.profiler``'s device time of that prefill
    and of four more decode steps on the main run's cache;
-8. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
+12. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
    8-16 prompt tokens, 16 new tokens each, through 4 slots.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository beside it, the script exits non-zero and prints no
-result.
+Each main path (FD, DC, join, offline, the LM prefill and decode, the
+engine) runs with every kernel's launch count at 0, read just after; the
+counts must be as ``PATH_LAUNCHES`` says, and the role scan and the
+semijoin lie on none of them.  The line before the last is a JSON object
+describing each kernel, its launches summed over the paths and given per
+path; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository beside it, the script exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -86,6 +105,19 @@ FD_SMALL_ROWS = 65_536
 SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS = 6_000_000, 1_500_000, 2_000
 DC_ROWS = 131_072
 N_QUERIES = 20
+# semijoin at SF1: lineorder's orderkeys against the orderkeys one range
+# query's answer relaxes to (one twentieth of SF1's 1,500,000)
+SEMIJOIN_KEYS = SF1_ORDERKEYS // N_QUERIES
+# join queries: 100 suppkeys each; the capacity holds the largest answer
+# (the region group-by joins every lineorder row)
+JOIN_CAPACITY = 1 << 24
+# Launches each main path must make (None: at least one); a kernel not
+# named launches none there.  dc_role_scan and semijoin lie on no path:
+# only their kernels.ops entry points call them.
+PATH_LAUNCHES = {
+    "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
+    "lm": {"flash_attention": 36}, "engine": {},
+}
 
 
 def log(msg: str) -> None:
@@ -142,6 +174,26 @@ def same_scan(got, want, what: str) -> float:
         if not torch.equal(bits(g), bits(w)):
             fail(f"{what}: kernel differs from the plain version (max abs err {err})")
     return err
+
+
+def _counted():
+    from repro_torch.kernels import dc_pairs, flash_attention, semijoin
+
+    return dc_pairs, semijoin, flash_attention
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for module in _counted():
+        module.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last ``reset_counts``."""
+    out = {}
+    for module in _counted():
+        out.update(module.LAUNCHES)
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -248,20 +300,22 @@ def kernel_phase(dev):
         plain_ms = cuda_ms(timing_case, 1)
     res = timing_case()
     bound_ms, bound_by, detail = scan_bound(
-        [price, disc], [price, disc], ["<", ">"], full_scope, full_scope, res
+        [price, disc], [price, disc], ["<", ">"], full_scope, full_scope,
+        [res.t1_count, res.t2_count], res.t1_stat + res.t2_stat,
     )
     log(f"dc_pair_scan n={n} full worklist: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}; {detail})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
-def scan_bound(l_cols, r_cols, ops, rs, cs, res, block=256):
+def scan_bound(l_cols, r_cols, ops, rs, cs, counts, stats, both=True, block=256):
     """Least time for the scan's work on an H100: bytes (each input read once,
     each output written once) over HBM bandwidth vs operations over the
     32-bit instruction issue rate.  Operations count what this run's data needs:
-    per role, one comparison per atom for every pair in the tiles the block
-    bounds cannot rule out, plus a count and a min/max per atom for every
-    violating pair."""
+    per role (one for the role scan, two for the pair scan), one comparison
+    per atom for every pair in the tiles the block bounds cannot rule out,
+    plus a count and a min/max per atom for every violating pair."""
     import torch
 
     from repro_torch.core.constraints import flip_op
@@ -276,30 +330,222 @@ def scan_bound(l_cols, r_cols, ops, rs, cs, res, block=256):
     csp = torch.nn.functional.pad(cs, (0, pad))
     b = [[dc_pairs._block_bounds(c, s, red, nb, block) for c in cols]
          for s, red in ((rsp, "min"), (rsp, "max"), (csp, "min"), (csp, "max"))]
+    roles = [(ops, l_idx, r_idx)]
+    if both:
+        roles.append(([flip_op(o) for o in ops], r_idx, l_idx))
     pairs = 0
-    for role_ops, li, ri in ((ops, l_idx, r_idx), ([flip_op(o) for o in ops], r_idx, l_idx)):
+    for role_ops, li, ri in roles:
         ok = torch.ones((nb, nb), dtype=torch.bool, device=rs.device)
         for op, x, y in zip(role_ops, li, ri):
             ok &= dc_pairs._tile_possible(
                 op, b[0][x][:, None], b[1][x][:, None], b[2][y][None, :], b[3][y][None, :]
             )
         pairs += int(ok.sum()) * block * block
-    violating = int(res.t1_count.sum()) + int(res.t2_count.sum())
+    violating = sum(int(c.sum()) for c in counts)
     n_atoms = len(ops)
     ops_count = pairs * n_atoms + violating * (n_atoms + 1)
     in_bytes = sum(c.numel() * c.element_size() for c in distinct) + 2 * n
-    out_bytes = 2 * 4 * n + sum(
-        s.numel() * s.element_size() for s in res.t1_stat + res.t2_stat
-    )
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    out_bytes = len(roles) * 4 * n + sum(s.numel() * s.element_size() for s in stats)
+    return bound(ops_count, in_bytes + out_bytes)
+
+
+def bound(ops_count, nbytes):
+    """(ms, "operations" or "bytes", detail): the larger of ``ops_count``
+    32-bit operations at the issue rate and ``nbytes`` at HBM bandwidth."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS_PER_S * 1e3
-    detail = f"{ops_count:.3e} ops, {in_bytes + out_bytes} bytes"
+    detail = f"{ops_count:.3e} ops, {nbytes} bytes"
     if t_ops >= t_bytes:
         return t_ops, "operations", detail
     return t_bytes, "bytes", detail
 
 
 # ------------------------------------------------------------------ phase 4
+def role_case(l_cols, r_cols, ops, rs, cs, reduces=None, block=256, **restr):
+    from repro_torch.core.detect import _T1_REDUCE
+    from repro_torch.kernels import ops as kops
+
+    reduces = reduces or [_T1_REDUCE[o] for o in ops]
+    return lambda: kops.dc_role_scan(l_cols, r_cols, ops, rs, cs, reduces, block=block,
+                                     **restr)
+
+
+def same_role(got, want, what: str) -> float:
+    """Hold two role-scan outputs ``(count, stats)`` bit for bit."""
+    import torch
+
+    err = 0.0
+    for g, w in [(got[0], want[0])] + list(zip(got[1], want[1])):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{what}: dtype/shape {g.dtype}{tuple(g.shape)} != {w.dtype}{tuple(w.shape)}")
+        err = max(err, max_abs_err(g, w))
+        if not torch.equal(bits(g), bits(w)):
+            fail(f"{what}: kernel differs from the plain version (max abs err {err})")
+    return err
+
+
+def role_scan_phase(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dc_pairs
+
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scope(n, p):
+        return t(rng.random(n) < p)
+
+    n = DC_ROWS
+    price = t(rng.uniform(1000, 5000, n).astype(np.float32))
+    disc = t((0.5 - (price.cpu().numpy() - 1000) / 8000 + rng.normal(0, 0.02, n)).astype(np.float32))
+    full = torch.ones(n, dtype=torch.bool, device=dev)
+    timing_case = role_case([price, disc], [price, disc], ["<", ">"], full, full)
+    m = 20_000
+    i8 = t(rng.integers(-128, 128, m).astype(np.int8))
+    i16 = t(rng.integers(-3000, 3000, m).astype(np.int16))
+    i32 = t(rng.integers(-500, 500, m).astype(np.int32))
+    bf = t(rng.integers(-200, 200, m).astype(np.float32) / 4).to(torch.bfloat16)
+    f32 = t(rng.uniform(-10, 10, m).astype(np.float32))
+    nb = -(-n // 256)
+    rows = np.flatnonzero(rng.random(nb) < 0.3).astype(np.int32)
+    colsb = np.flatnonzero(rng.random(nb) < 0.5).astype(np.int32)
+    special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, 2.5], np.float32)
+    z, w = t(rng.choice(special, 3000)), t(rng.choice(special, 3000))
+    cases = [
+        (f"fig12 f32 price<,disc> n={n} full", timing_case),
+        ("int8 <", role_case([i8], [i8], ["<"], scope(m, 0.8), scope(m, 0.8))),
+        ("int16 ==", role_case([i16], [i16], ["=="], scope(m, 0.8), scope(m, 0.8))),
+        ("int32 three atoms <=,!=,>", role_case(
+            [i32, i16, i8], [i8, i32, i32], ["<=", "!=", ">"], scope(m, 0.8), scope(m, 0.9))),
+        ("bf16 >=", role_case([bf], [bf], [">="], scope(m, 0.8), scope(m, 0.8))),
+        ("f32 three atoms !=,<,>=", role_case(
+            [f32, bf, f32], [f32, f32, bf], ["!=", "<", ">="], scope(m, 0.8), scope(m, 0.8))),
+        ("row strip (lo, hi)", role_case(
+            [price, disc], [price, disc], ["<=", ">="], full, full, row_blocks=(7, 19))),
+        ("col strip (lo, hi)", role_case(
+            [price], [price], ["<"], scope(n, 0.7), full, col_blocks=(100, 140))),
+        ("row x col worklist", role_case(
+            [price, disc], [price, disc], ["<", ">"], scope(n, 0.7), scope(n, 0.7),
+            row_block_ids=rows, col_block_ids=colsb)),
+        ("NaN and signed zeros !=,< (min, max)", role_case(
+            [z, w], [w, z], ["!=", "<"], scope(3000, 0.9), scope(3000, 0.9),
+            reduces=["min", "max"], block=128)),
+        ("NaN and signed zeros <= (max)", role_case(
+            [z], [z], ["<="], scope(3000, 0.9), scope(3000, 0.9), reduces=["max"], block=128)),
+    ]
+    for r in (1, 257, 1000):
+        a = t(rng.integers(0, 6, r).astype(np.int32))
+        cases.append((f"ragged n={r}", role_case([a], [a], ["<"], scope(r, 0.7), scope(r, 0.7),
+                                                 block=64)))
+    err = 0.0
+    before = dc_pairs.LAUNCHES["dc_role_scan"]
+    for name, fn in cases:
+        got = fn()
+        with dc_pairs.plain_version():
+            want = fn()
+        torch.cuda.synchronize()
+        err = max(err, same_role(got, want, f"role scan {name}"))
+        log(f"role scan == plain: {name}: bit-identical")
+    empty = role_case([price], [price], ["<"], full, full,
+                      row_block_ids=np.array([], np.int32))()
+    launched = dc_pairs.LAUNCHES["dc_role_scan"] - before
+    if launched != len(cases):
+        fail(f"{launched} role-scan launches for {len(cases)} cases + one empty worklist")
+    if bool(empty[0].any()) or not bool((empty[1][0] == -float("inf")).all()):
+        fail("role scan: empty worklist does not give identities")
+    log("role scan == plain: empty worklist: identities, no launch")
+
+    ms = cuda_ms(timing_case, 5)
+    with dc_pairs.plain_version():
+        plain_ms = cuda_ms(timing_case, 1)
+    count, stats = timing_case()
+    bound_ms, bound_by, detail = scan_bound(
+        [price, disc], [price, disc], ["<", ">"], full, full, [count], stats, both=False)
+    log(f"dc_role_scan n={n} full worklist, one role: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {detail})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# ------------------------------------------------------------------ phase 5
+def semijoin_bound(query, query_mask, keys, keys_mask):
+    """Least time of the membership test on these inputs, whatever the
+    method: the bytes (query, keys, both masks read once, the output
+    written once) against the operations of a hash join over this run's
+    data (one insert for each live key, one probe for each live query) at
+    the 32-bit issue rate.  The kernel's own brute-force compares are not
+    the function's work: ``torch.isin`` does the same in far less."""
+    ops_count = int(keys_mask.sum()) + int(query_mask.sum())
+    nbytes = query.numel() * 4 + query_mask.numel() * 2 + keys.numel() * 4 + keys_mask.numel()
+    return bound(ops_count, nbytes)
+
+
+def semijoin_phase(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.data.generators import ssb_lineorder
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import semijoin as sj
+
+    rng = np.random.default_rng(4)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for n, m in ((5, 7), (64, 64), (100, 257), (513, 100)):  # tests/test_kernels.py
+        q, k = t(rng.integers(0, 40, n).astype(np.int32)), t(rng.integers(0, 40, m).astype(np.int32))
+        qm, km = t(rng.random(n) < 0.8), t(rng.random(m) < 0.8)
+        for block in (64, 256):
+            cases.append((f"n={n} m={m} block={block}", (q, qm, k, km), block))
+    q, k = t(np.arange(10, dtype=np.int32)), t(np.arange(10, dtype=np.int32))
+    cases.append(("all-false key mask", (q, t(np.ones(10, bool)), k, t(np.zeros(10, bool))), 512))
+    q = t(rng.integers(0, 50_000, 200_000).astype(np.int32))
+    k = t(rng.integers(0, 50_000, 5_000).astype(np.int32))
+    cases.append(("n=200000 m=5000 block=512", (q, t(rng.random(200_000) < 0.9), k,
+                                                t(rng.random(5_000) < 0.7)), 512))
+    err = 0.0
+    sj.reset_launch_counts()
+    for name, args, block in cases:
+        got = kops.semijoin(*args, block=block)
+        with sj.plain_version():
+            want = kops.semijoin(*args, block=block)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bool or got.shape != args[0].shape or not torch.equal(got, want):
+            fail(f"semijoin {name}: kernel differs from the plain version")
+        err = max(err, max_abs_err(got.to(torch.float32), want.to(torch.float32)))
+        log(f"semijoin == plain: {name}: bit-identical ({int(got.sum())} hits)")
+    if sj.LAUNCHES["semijoin"] != len(cases):
+        fail(f"{sj.LAUNCHES['semijoin']} semijoin launches for {len(cases)} cases")
+
+    query = t(ssb_lineorder(SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS, seed=0)["orderkey"])
+    keys = t(rng.permutation(SEMIJOIN_KEYS).astype(np.int32))
+    query_mask = torch.ones_like(query, dtype=torch.bool)
+    keys_mask = torch.ones_like(keys, dtype=torch.bool)
+    args = (query, query_mask, keys, keys_mask)
+    got = kops.semijoin(*args, block=512)
+    with sj.plain_version():
+        want = kops.semijoin(*args, block=512)
+    library = torch.isin(query, keys[keys_mask]) & query_mask
+    if not torch.equal(got, want) or not torch.equal(got, library):
+        fail("semijoin at SF1: kernel, plain version and torch.isin disagree")
+    ms = cuda_ms(lambda: kops.semijoin(*args, block=512), 3)
+    with sj.plain_version():
+        plain_ms = cuda_ms(lambda: kops.semijoin(*args, block=512), 1)
+    library_ms = cuda_ms(lambda: torch.isin(query, keys[keys_mask]) & query_mask, 10)
+    bound_ms, bound_by, detail = semijoin_bound(*args)
+    log(f"semijoin n={SF1_ROWS} m={SEMIJOIN_KEYS} block=512 ({int(got.sum())} hits): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.isin {library_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {detail})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# ------------------------------------------------------------------ phase 6
 def attention_bound(q, k, causal, window):
     """Least time of one attention call on an H100: the larger of its bf16
     FLOPs (4 D per visible query-key pair and head: the QK^T and PV
@@ -448,7 +694,7 @@ def range_queries(col, edges, as_float):
     ]
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 7
 def fd_workload(n, n_orderkeys, n_suppkeys, device):
     from repro_torch.core.constraints import FD
     from repro_torch.core.relation import make_relation
@@ -499,13 +745,15 @@ def fd_phase(dev):
     t_init = time.perf_counter() - t0
     log(f"FD SF1: {SF1_ROWS} rows, {SF1_ORDERKEYS} orderkeys, {SF1_SUPPKEYS} suppkeys; "
         f"data {t_data:.3f} s, Daisy init (stats) {t_init:.3f} s")
-    times, modes = [], []
-    for i, q in enumerate(queries(SF1_ORDERKEYS)[:N_QUERIES]):
+    times, modes, masks = [], [], []
+    sf1_queries = queries(SF1_ORDERKEYS)[:N_QUERIES]
+    for i, q in enumerate(sf1_queries):
         t0 = time.perf_counter()
         res = daisy.execute(q)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         times.append(dt)
+        masks.append(res.mask)
         step = res.report.steps[0]
         modes.append(step.mode)
         if res.mask.shape[0] != SF1_ROWS or res.report.result_size <= 0:
@@ -518,9 +766,10 @@ def fd_phase(dev):
             fail(f"FD SF1: bad candidate counts on {name}")
     log(f"FD SF1: total {sum(times):.3f} s over {N_QUERIES} queries, "
         f"mean {np.mean(times) * 1e3:.3f} ms, modes {modes}")
+    return sf1_queries, masks, sum(times)
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 8
 def dc_workload(device):
     import numpy as np
 
@@ -563,11 +812,13 @@ def dc_run(dev):
 
 
 def dc_phase(dev):
+    """The DC path's launch counts (the kernel run's) and its time."""
     from repro_torch.kernels import dc_pairs
 
-    dc_pairs.reset_launch_counts()
+    reset_counts()
     states, times = dc_run(dev)
-    launches = dc_pairs.LAUNCHES["dc_pair_scan"]
+    counts = read_counts()
+    launches = counts["dc_pair_scan"]
     if launches <= 0:
         fail("DC path ran without launching the dc_pair_scan kernel")
     with dc_pairs.plain_version():
@@ -580,10 +831,166 @@ def dc_phase(dev):
         f"kernel launches {launches}, tiles {tiles}, modes {modes}")
     log(f"DC path: kernel run {sum(times):.3f} s, plain run {sum(plain_times):.3f} s; "
         f"per query ms (kernel) {[round(t * 1e3, 3) for t in times]}")
-    return launches
+    return counts, sum(times)
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 9
+def join_workload(n_rows, device):
+    """fig13's tables at ``n_rows`` lineorder rows (orderkeys a quarter of
+    the rows, as SF1's 1,500,000 of 6,000,000) and SF1's 2,000 suppliers:
+    FD orderkey -> suppkey on lineorder and FD address -> suppkey on
+    suppliers, 10% of rows edited in each, overlays of k = 8."""
+    from repro_torch.core.constraints import FD
+    from repro_torch.core.relation import make_relation
+    from repro_torch.data.generators import inject_fd_errors, ssb_lineorder, suppliers
+
+    lo = ssb_lineorder(n_rows, n_rows // 4, SF1_SUPPKEYS, seed=0)
+    ds_lo = inject_fd_errors(lo, "orderkey", "suppkey", 1.0, 0.1, SF1_SUPPKEYS, seed=1)
+    sup = suppliers(SF1_SUPPKEYS, seed=2)
+    ds_sup = inject_fd_errors(sup, "address", "suppkey", 1.0, 0.1, SF1_SUPPKEYS, seed=3)
+    db = {
+        "lineorder": make_relation(ds_lo.data, overlay=["orderkey", "suppkey"], k=8,
+                                   rules=["phi"], device=device),
+        "suppliers": make_relation(ds_sup.data, overlay=["address", "suppkey"], k=8,
+                                   rules=["psi"], device=device),
+    }
+    rules = {"lineorder": [FD("phi", "orderkey", "suppkey")],
+             "suppliers": [FD("psi", "address", "suppkey")]}
+    return db, rules
+
+
+def join_queries():
+    """20 range joins over suppkey, 100 suppkeys each, then fig13's join
+    group-by by supplier region over every lineorder row."""
+    import numpy as np
+
+    from repro_torch.core.operators import GroupBySpec, JoinClause, Pred, Query
+
+    join = (JoinClause("suppliers", "suppkey", "suppkey"),)
+    edges = np.linspace(0, SF1_SUPPKEYS, N_QUERIES + 1).astype(int)
+    qs = [Query("lineorder", preds=(Pred("suppkey", ">=", int(a)), Pred("suppkey", "<", int(b))),
+                joins=join) for a, b in zip(edges[:-1], edges[1:])]
+    qs.append(Query("lineorder", preds=(Pred("suppkey", ">=", 0),), joins=join,
+                    groupby=GroupBySpec(keys=("region",), agg="count", table="suppliers")))
+    return qs
+
+
+def join_state(daisy, res):
+    """Host copy of a join answer, its report and both tables' overlays."""
+    state = {f"rows.{t}": r.cpu().numpy() for t, r in res.join.rows.items()}
+    state["valid"] = res.join.valid.cpu().numpy()
+    state["overflow"] = res.join.overflow.cpu().numpy()
+    state["report"] = res.report.asdict()
+    for table in daisy.db:
+        rel = daisy.db[table]
+        for field in ("cand", "ccount", "ckind", "checked"):
+            for k, v in getattr(rel, field).items():
+                state[f"{table}.{field}.{k}"] = v.cpu().numpy()
+    if res.groups is not None:
+        for k, v in res.groups.items():
+            state[f"groups.{k}"] = v.cpu().numpy()
+    return state
+
+
+def join_phase(dev):
+    import torch
+
+    from repro_torch.core.executor import Daisy, DaisyConfig
+
+    cfg = DaisyConfig(join_capacity=JOIN_CAPACITY, join_row_block=2048, use_cost_model=False)
+    runs = {}
+    for device in ("cpu", dev):
+        db, rules = join_workload(FD_SMALL_ROWS, device)
+        daisy = Daisy(db, rules, cfg, device=device)
+        runs[device] = [join_state(daisy, daisy.execute(q)) for q in join_queries()]
+    for i, (a, b) in enumerate(zip(runs["cpu"], runs[dev])):
+        same_state(a, b, f"join {FD_SMALL_ROWS} rows query {i} cuda vs cpu",
+                   float_groups_rtol=1e-6)
+    log(f"join path {FD_SMALL_ROWS} rows: cuda == cpu on {len(runs['cpu'])} queries "
+        f"(answers {[st['report']['result_size'] for st in runs[dev]]})")
+    del runs
+
+    t0 = time.perf_counter()
+    db, rules = join_workload(SF1_ROWS, dev)
+    daisy = Daisy(db, rules, cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"join SF1: lineorder {SF1_ROWS} rows, suppliers {SF1_SUPPKEYS} rows; data and "
+        f"Daisy init {time.perf_counter() - t0:.3f} s; join_capacity {cfg.join_capacity}, "
+        f"join_row_block {cfg.join_row_block}")
+    times, sizes = [], []
+    for i, q in enumerate(join_queries()):
+        t0 = time.perf_counter()
+        res = daisy.execute(q)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        rep = res.report
+        sizes.append(rep.result_size)
+        if rep.join_overflow or bool(res.join.overflow):
+            fail(f"join SF1 query {i} overflowed the capacity {cfg.join_capacity}")
+        if rep.recheck_violations != 0:
+            fail(f"join SF1 query {i}: {rep.recheck_violations} re-check violations "
+                 "(Lemma 5 predicts 0)")
+        if rep.result_size <= 0 or res.join.rows["lineorder"].shape[0] != cfg.join_capacity:
+            fail(f"join SF1 query {i}: empty or misshapen answer")
+        what = "group-by region" if q.groupby is not None else "range join"
+        log(f"join SF1 query {i} ({what}): {dt * 1e3:.3f} ms, result {rep.result_size}, "
+            f"recheck_violations {rep.recheck_violations}, join_overflow {rep.join_overflow}, "
+            f"steps {[(s.table, s.mode, s.answer_size, s.extra, s.repaired) for s in rep.steps]}")
+    groups = res.groups
+    if int(groups["num_groups"]) != 5 or not bool(torch.isfinite(groups["count"]).all()):
+        fail(f"join SF1 group-by: {int(groups['num_groups'])} regions")
+    log(f"join SF1: first-touch query {times[0] * 1e3:.3f} ms, later range joins "
+        f"{[round(t * 1e3, 3) for t in times[1:N_QUERIES]]} ms, group-by "
+        f"{times[-1] * 1e3:.3f} ms; largest answer {max(sizes)} of capacity "
+        f"{cfg.join_capacity}; region counts {groups['count'][:5].tolist()}")
+    del daisy, db, res
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 10
+def offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s):
+    import torch
+
+    from repro_torch.core.offline import OfflineCleaner
+    from repro_torch.kernels import dc_pairs
+
+    rel, fd = fd_workload(SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS, dev)
+    off = OfflineCleaner({"t": rel}, {"t": [fd]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off.clean_all()
+    torch.cuda.synchronize()
+    t_clean = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, (q, want) in enumerate(zip(fd_queries, fd_masks)):
+        got = off.execute(q).mask
+        if not torch.equal(got, want):
+            fail(f"offline FD SF1 query {i}: answer differs from Daisy's in "
+                 f"{int((got ^ want).sum())} rows (the FD guarantee)")
+    torch.cuda.synchronize()
+    t_queries = time.perf_counter() - t0
+    log(f"offline FD SF1: clean_all {t_clean:.3f} s, then {len(fd_queries)} queries "
+        f"{t_queries:.3f} s; answers == Daisy's on every query (Daisy's 20 queries took "
+        f"{fd_daisy_s:.3f} s)")
+    del off, rel
+
+    rel, dc = dc_workload(dev)
+    off = OfflineCleaner({"t": rel}, {"t": [dc]})
+    before = dc_pairs.LAUNCHES["dc_pair_scan"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off.clean_all()
+    torch.cuda.synchronize()
+    t_dc = time.perf_counter() - t0
+    launches = dc_pairs.LAUNCHES["dc_pair_scan"] - before
+    if launches != 1 or not bool(off.db["t"].checked["dc_pd"][: DC_ROWS].all()):
+        fail(f"offline DC clean_all: {launches} pair-scan launches, not one over the full worklist")
+    log(f"offline DC {DC_ROWS} rows: clean_all {t_dc:.3f} s with {launches} dc_pair_scan "
+        f"launch (Daisy's 20 queries: {dc_daisy_s:.3f} s)")
+
+
+# ------------------------------------------------------------------ phase 11
 def device_profile(fn, reps: int):
     """Kernel time on the card per call of ``fn`` (``torch.profiler``'s CUDA
     activity, summed over kernels) and the five largest kernels by time."""
@@ -609,8 +1016,8 @@ def device_profile(fn, reps: int):
 
 def lm_phase(dev):
     """qwen3-4b at its published width, weights from seed 0 on the card.
-    Returns the flash launches of the main path's run and the bf16 compute
-    copy of the weights (for the engine)."""
+    Returns the launch counts of the main path's run (prefill, then greedy
+    decode) and the bf16 compute copy of the weights (for the engine)."""
     import dataclasses
 
     import torch
@@ -663,12 +1070,12 @@ def lm_phase(dev):
     torch.cuda.synchronize()
 
     # the main path: prefill, then greedy decode, counts read right after
-    fa.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     logits, cache = tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = fa.LAUNCHES["flash_attention"]
+    prefill_launches = read_counts()["flash_attention"]
     first = logits.clone()
     out = []
     t0 = time.perf_counter()
@@ -678,7 +1085,8 @@ def lm_phase(dev):
         logits, cache = tt.decode_step(params, cfg, cache, tok)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
-    launches = fa.LAUNCHES["flash_attention"]
+    counts = read_counts()
+    launches = counts["flash_attention"]
     if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
         fail(f"prefill launched flash {prefill_launches} times and the run {launches}, "
              f"not once a layer ({cfg.n_layers})")
@@ -735,7 +1143,7 @@ def lm_phase(dev):
         fail(f"cache t {cache['t']} after the profiled decode steps")
     del cache, logits, state
     torch.cuda.empty_cache()
-    return launches, cfg, params
+    return counts, cfg, params
 
 
 def _leaves(tree):
@@ -746,7 +1154,7 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 12
 def engine_phase(dev, cfg, params):
     import numpy as np
     import torch
@@ -805,10 +1213,10 @@ def main() -> int:
 
     # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    names = ("dc_pairs", "flash_attention")
+    names = ("dc_pairs", "flash_attention", "semijoin")
     with ThreadPoolExecutor(len(names)) as pool:
-        paths = list(pool.map(lambda n: build.build_library(n, verbose_ptxas=True), names))
-    log(f"built {[os.path.relpath(p, HERE) for p in paths]} in "
+        libs = list(pool.map(lambda n: build.build_library(n, verbose_ptxas=True), names))
+    log(f"built {[os.path.relpath(p, HERE) for p in libs]} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in names:
         for line in build.BUILD_LOG[name]["ptxas"].splitlines():
@@ -816,19 +1224,48 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     dc_measured = kernel_phase(dev)
+    role_measured = role_scan_phase(dev)
+    semijoin_measured = semijoin_phase(dev)
     flash_measured = flash_phase(dev)
-    fd_phase(dev)
-    dc_launches = dc_phase(dev)
-    flash_launches, cfg, params = lm_phase(dev)
-    engine_phase(dev, cfg, params)
+    # the main paths, each driven with every count at 0 and read just after
+    # (the DC and LM phases read theirs around their main run)
+    paths = {}
+
+    def drive(name, run):
+        reset_counts()
+        out = run()
+        paths[name] = read_counts()
+        return out
+
+    fd_queries, fd_masks, fd_daisy_s = drive("fd", lambda: fd_phase(dev))
+    paths["dc"], dc_daisy_s = dc_phase(dev)
+    drive("join", lambda: join_phase(dev))
+    drive("offline", lambda: offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s))
+    del fd_masks
+    paths["lm"], cfg, params = lm_phase(dev)
+    drive("engine", lambda: engine_phase(dev, cfg, params))
+    for path, counts in paths.items():
+        log(f"{path} path launches: {counts}")
+        for kernel, n in counts.items():
+            want = PATH_LAUNCHES[path].get(kernel, 0)
+            if (n <= 0) if want is None else (n != want):
+                fail(f"the {path} path launched {kernel} {n} times, expected "
+                     f"{'at least one' if want is None else want}")
+    measured = {"dc_pair_scan": dc_measured, "flash_attention": flash_measured,
+                "dc_role_scan": role_measured, "semijoin": semijoin_measured}
+    where = {
+        "dc_pair_scan": ("dc_pairs.cu", "dc_pairs.py:445"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:101"),
+        "dc_role_scan": ("dc_pairs.cu", "dc_pairs.py:238"),
+        "semijoin": ("semijoin.cu", "semijoin.py:32"),
+    }
     records = [
-        dict(name="dc_pair_scan", route="cuda", source="src/repro_torch/csrc/dc_pairs.cu",
-             replaces="src/repro/kernels/dc_pairs.py:445", launches=dc_launches,
-             library_ms=None, **dc_measured),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:101",
-             launches=flash_launches, **flash_measured),
+        dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+             replaces=f"src/repro/kernels/{tpu}",
+             launches=sum(counts[name] for counts in paths.values()),
+             path_launches={path: counts[name] for path, counts in paths.items()},
+             **measured[name])
+        for name, (src, tpu) in where.items()
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

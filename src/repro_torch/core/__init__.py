@@ -1,7 +1,7 @@
 """Daisy core in PyTorch: query-driven denial-constraint cleaning.
 
-Public API re-exports (the slice ported so far: SP and group-by queries
-with FD and DC rules).
+Public API re-exports (the slices ported so far: SP, group-by and join
+queries with FD and DC rules, and the offline baseline).
 """
 
 from repro_torch.core.accuracy import Accuracy, repair_accuracy
@@ -10,7 +10,15 @@ from repro_torch.core.cost import CostModel
 from repro_torch.core.detect import DetectResult, detect_auto, detect_dc, detect_fd
 from repro_torch.core.executor import Daisy, DaisyConfig, DaisyResult
 from repro_torch.core.ledger import StripLedger, WorkLedger
-from repro_torch.core.operators import GroupBySpec, Pred, Query, filter_mask
+from repro_torch.core.offline import OfflineCleaner
+from repro_torch.core.operators import (
+    GroupBySpec,
+    JoinClause,
+    JoinState,
+    Pred,
+    Query,
+    filter_mask,
+)
 from repro_torch.core.planner import plan_query
 from repro_torch.core.relation import Dictionary, Relation, make_relation
 from repro_torch.core.relax import relax_fd
@@ -29,6 +37,9 @@ __all__ = [
     "Dictionary",
     "FD",
     "GroupBySpec",
+    "JoinClause",
+    "JoinState",
+    "OfflineCleaner",
     "Pred",
     "Query",
     "Relation",

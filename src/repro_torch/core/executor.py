@@ -1,23 +1,27 @@
 """Daisy executor in PyTorch: query processing woven with cleaning (§4-§6).
 
-The counterpart of ``repro.core.executor`` for SP and group-by queries.
-``Daisy.execute(query)`` runs the cleaning-aware plan:
+The counterpart of ``repro.core.executor`` for SP, group-by and join
+queries.  ``Daisy.execute(query)`` runs the cleaning-aware plan:
 
-1. the planner injects a cleaning step per overlapping rule (planner.py);
+1. the planner injects a cleaning step per overlapping rule (planner.py),
+   on the base table and on every joined table;
 2. an FD step relaxes the answer (``relax_fd``), detects violations over
    the correlated cluster with the sort-based group-by, merges the
    probabilistic repairs and flags the cluster checked;
 3. a DC step scans its block worklist with the fused both-role pair scan
    (the CUDA kernel on the card), merges the range fixes and marks the scope;
-4. the answer is recomputed with possible-world semantics.
+4. the answer is recomputed with possible-world semantics: a mask for an SP
+   query; for a join, the base join of the dirty qualifying parts plus the
+   incremental join of the relaxation extras (Fig. 5), the Def. 3 (d)
+   re-check of the stitched result, and group-by over its lineage.
 
 Every FD/DC mode that the reference's ``execute`` reaches is here —
 incremental, full (pruned to the cold part of the scope) and skipped —
 with the same cost models, statistics and work ledger, so ``StepReport``s
 and scope versions match the reference query by query.  The strip mode,
-which only the reference's background increments plan, waits with them.  Joins, streaming ingest, background
-increments and sharded detection wait for later slices: a query with
-``joins`` and a config with a ``mesh`` raise ``NotImplementedError``.
+which only the reference's background increments plan, waits with them.
+Streaming ingest, background increments and sharded detection wait for
+later slices: a config with a ``mesh`` raises ``NotImplementedError``.
 
 All state lives on one device, the ``device`` the engine was built for
 (``"cuda"`` unless the caller asks for the CPU).
@@ -35,9 +39,21 @@ import torch
 from repro_torch.core import stats as statsmod
 from repro_torch.core.constraints import DC, FD
 from repro_torch.core.cost import CostModel
-from repro_torch.core.detect import detect_auto
+from repro_torch.core.detect import detect_auto, detect_fd
 from repro_torch.core.ledger import WorkLedger
-from repro_torch.core.operators import Query, filter_mask, groupby_agg
+from repro_torch.core.operators import (
+    GroupBySpec,
+    JoinState,
+    Query,
+    _finalize_groupby,
+    compact_order,
+    dedupe_pairs,
+    expected_value,
+    filter_mask,
+    groupby_agg,
+    key_candidates,
+    prob_equijoin,
+)
 from repro_torch.core.planner import CleanStep, PlanInfo, plan_query
 from repro_torch.core.relax import relax_fd
 from repro_torch.core.relation import Relation, resolve_device
@@ -114,7 +130,7 @@ class ExecReport:
 @dataclasses.dataclass
 class DaisyResult:
     mask: Optional[torch.Tensor] = None  # SP result (mask over base table)
-    join: Optional[object] = None  # join lineage (joins wait for a later slice)
+    join: Optional[JoinState] = None  # join lineage
     groups: Optional[Dict[str, torch.Tensor]] = None  # group-by output
     report: ExecReport = dataclasses.field(default_factory=ExecReport)
 
@@ -476,11 +492,9 @@ class Daisy:
                 self._clean_dc(step, report)
 
     def execute(self, query: Query) -> DaisyResult:
-        """Clean what the query touches, then answer it (SP and group-by)."""
-        if query.joins:
-            raise NotImplementedError("join queries are not ported yet")
+        """Clean what the query touches, then answer it."""
         with self._lock, self.tracer.span(
-            "daisy.execute", table=query.table, joins=0
+            "daisy.execute", table=query.table, joins=len(query.joins)
         ) as sp:
             plan = plan_query(
                 query, self.rules, self._want_full(),
@@ -488,12 +502,139 @@ class Daisy:
                 ledger=self.ledger,
             )
             report = ExecReport(notes=list(plan.notes))
-            self._run_steps(plan, report)
-            rel = self.db[query.table]
-            mask = filter_mask(rel, query.preds)
-            report.result_size = _count(mask)
-            result = DaisyResult(mask=mask, report=report)
-            if query.groupby is not None:
-                result.groups = groupby_agg(rel, mask, query.groupby)
+            if not query.joins:
+                result = self._execute_sp(query, plan, report)
+            else:
+                result = self._execute_join(query, plan, report)
             sp.set(steps=len(report.steps), result_size=report.result_size)
             return result
+
+    # ----------------------------------------------------------- SP queries
+    def _execute_sp(self, query: Query, plan: PlanInfo, report: ExecReport) -> DaisyResult:
+        self._run_steps(plan, report)
+        rel = self.db[query.table]
+        mask = filter_mask(rel, query.preds)
+        report.result_size = _count(mask)
+        result = DaisyResult(mask=mask, report=report)
+        if query.groupby is not None:
+            result.groups = groupby_agg(rel, mask, query.groupby)
+        return result
+
+    # --------------------------------------------------------- join queries
+    def _join_masks(self, query: Query) -> Dict[str, torch.Tensor]:
+        masks = {query.table: filter_mask(self.db[query.table], query.preds)}
+        for j in query.joins:
+            masks[j.right] = filter_mask(self.db[j.right], j.right_preds)
+        return masks
+
+    def _execute_join(self, query: Query, plan: PlanInfo, report: ExecReport) -> DaisyResult:
+        pre_masks = self._join_masks(query)  # the dirty base join inputs
+        self._run_steps(plan, report)  # clean each side's qualifying part
+        post_masks = self._join_masks(query)
+        state: Optional[JoinState] = None
+        for j in query.joins:
+            state = self._join_once(query, state, j, pre_masks, post_masks, report)
+        report.result_size = _count(state.valid)
+        report.recheck_violations = self._recheck(state)
+        result = DaisyResult(join=state, report=report)
+        if query.groupby is not None:
+            result.groups = self._groupby_join(state, query.groupby)
+        return result
+
+    def _key_source(self, state: Optional[JoinState], base: str, col: str) -> str:
+        """Which table provides ``col`` for the current join state."""
+        tables = [base] if state is None else list(state.tables)
+        for t in tables:
+            if col in self.db[t].columns:
+                return t
+        raise KeyError(f"join key {col!r} not found among {tables}")
+
+    def _join_once(self, query, state, j, pre_masks, post_masks, report) -> JoinState:
+        cfg = self.config
+        left_table = self._key_source(state, query.table, j.left_on)
+        rel_l = self.db[left_table]
+        rel_r = self.db[j.right]
+        kv_l, al_l = key_candidates(rel_l, j.left_on)
+        kv_r, al_r = key_candidates(rel_r, j.right_on)
+
+        def join(l_vals, l_alive, mask_l, mask_r):
+            return prob_equijoin(l_vals, l_alive, mask_l, kv_r, al_r, mask_r,
+                                 cfg.join_capacity, cfg.join_row_block)
+
+        if state is None:
+            pre_l, post_l = pre_masks[query.table], post_masks[query.table]
+            pre_r, post_r = pre_masks[j.right], post_masks[j.right]
+            # base join on the dirty qualifying parts, then the incremental
+            # join of the relaxation extras (Fig. 5): extras_l x post_r and
+            # pre_l x extras_r
+            parts = [
+                join(kv_l, al_l, pre_l, pre_r),
+                join(kv_l, al_l, post_l & ~pre_l, post_r),
+                join(kv_l, al_l, pre_l, post_r & ~pre_r),
+            ]
+            li, ri, v = (torch.cat([p[i] for p in parts]) for i in range(3))
+            v = dedupe_pairs(li, ri, v)
+            order = compact_order(v, cfg.join_capacity)
+            li, ri, v = li[order], ri[order], v[order]
+            overflow = parts[0][3] | parts[1][3] | parts[2][3]
+            report.join_overflow = bool(overflow)
+            return JoinState(
+                tables=(left_table, j.right),
+                rows={left_table: li, j.right: ri},
+                valid=v,
+                overflow=overflow,
+            )
+
+        # chained join: gather the current result's key candidates (the
+        # reference's gather clamps the out-of-range ids of free slots)
+        rows_l = state.rows[left_table].long().clamp(max=rel_l.capacity - 1)
+        kv_res = kv_l[rows_l]
+        al_res = al_l[rows_l] & state.valid[:, None]
+        post_r = post_masks.get(j.right, rel_r.valid)
+        li, ri, v, ovf = join(kv_res, al_res, state.valid, post_r)
+        v = dedupe_pairs(li, ri, v)
+        new_rows = {
+            t: torch.where(v, r[li.long().clamp(max=r.shape[0] - 1)], r.shape[0])
+            for t, r in state.rows.items()
+        }
+        new_rows[j.right] = torch.where(v, ri, rel_r.capacity)
+        report.join_overflow = report.join_overflow or bool(ovf)
+        return JoinState(
+            tables=state.tables + (j.right,),
+            rows=new_rows,
+            valid=v,
+            overflow=state.overflow | ovf,
+        )
+
+    def _recheck(self, state: JoinState) -> int:
+        """Def. 3 (d): re-check the stitched join result for violations.
+        Lemma 5 predicts zero NEW violations among unchecked rows."""
+        total = 0
+        for table in state.tables:
+            rel = self.db[table]
+            rows = state.rows[table][state.valid].long()
+            used = torch.zeros_like(rel.valid)
+            used[rows[rows < rel.capacity]] = True
+            for rule in self.rules.get(table, ()):
+                if isinstance(rule, FD):
+                    self.detect_calls += 1
+                    det = detect_fd(rel, rule, used & rel.valid, k=self.config.k)
+                    total += _count(det.violated & unchecked(rel, rule.name))
+        return total
+
+    def _groupby_join(self, state: JoinState, spec: GroupBySpec):
+        """Group-by over join lineage: gather key/value columns, aggregate
+        with expected-value semantics."""
+        table = spec.table or self._key_source(state, state.tables[0], spec.keys[0])
+        rel = self.db[table]
+        safe = state.rows[table].long().clamp(max=rel.capacity - 1)
+        keys = [rel.columns[a][safe] for a in spec.keys]
+        w = state.valid.to(torch.float32)
+        if spec.value:
+            vt = spec.table or self._key_source(state, state.tables[0], spec.value)
+            vrel = self.db[vt]
+            vrows = state.rows[vt].long().clamp(max=vrel.capacity - 1)
+            v = expected_value(vrel, spec.value)[vrows]
+        else:
+            v = torch.zeros_like(w)
+        return _finalize_groupby(spec, keys, state.valid, w, v)

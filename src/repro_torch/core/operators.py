@@ -1,15 +1,18 @@
 """Query AST + probabilistic execution primitives (paper §4, §5) in PyTorch.
 
-The counterpart of ``repro.core.operators`` for SP and group-by queries:
+The counterpart of ``repro.core.operators``:
 
 * **filter**: a tuple qualifies iff >= 1 candidate qualifies
   (``Relation.candidate_matches``);
+* **join**: a pair qualifies iff the candidate value sets of the join keys
+  overlap; lineage is the originating row ids of each pair, kept in a
+  ``JoinState`` of fixed capacity with an overflow flag;
 * **group-by**: expected-value aggregation — each candidate contributes its
   probability mass to its group.
 
 The AST (``Pred``, ``JoinClause``, ``GroupBySpec``, ``Query``) and
 ``query_fingerprint`` are copied verbatim, so fingerprints agree across the
-two packages.  The possible-world join waits for a later slice.
+two packages.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import CAND_VALUE, Relation
-from repro_torch.core.setops import segment_reduce, group_info, unique_counts
+from repro_torch.core.setops import group_info, lex_order, segment_reduce, unique_counts
 
 
 # --------------------------------------------------------------------- AST
@@ -117,6 +120,18 @@ def query_fingerprint(query: Query) -> str:
     return hashlib.sha256("\x1f".join(parts).encode()).hexdigest()[:16]
 
 
+# ----------------------------------------------------------------- results
+@dataclasses.dataclass
+class JoinState:
+    """Lineage of a (possibly multi-way) join: per-table originating row ids
+    for each result pair (the paper's probabilistic-join lineage)."""
+
+    tables: Tuple[str, ...]
+    rows: Dict[str, torch.Tensor]  # table -> (cap_out,) int32 row ids
+    valid: torch.Tensor  # (cap_out,) bool
+    overflow: torch.Tensor  # () bool
+
+
 # ----------------------------------------------------------------- filters
 def filter_mask(rel: Relation, preds: Sequence[Pred]) -> torch.Tensor:
     """Possible-world conjunctive filter."""
@@ -143,6 +158,101 @@ def key_candidates(rel: Relation, attr: str) -> Tuple[torch.Tensor, torch.Tensor
     first[:, 0] = True
     alive = torch.where(has[:, None], alive, first)
     return vals, alive & rel.valid[:, None]
+
+
+# -------------------------------------------------------------------- joins
+def _overlap_pairs(l_vals, l_alive, mask_l, r_vals, r_alive, mask_r):
+    """Every (li, ri) with ``mask_l[li]``, ``mask_r[ri]`` and overlapping
+    candidate sets (the possible-world join), as flat ids ``li * n_r + ri``
+    sorted row-major (int64, deduplicated).  A sort-merge on the candidate
+    values finds them without the dense (n_l, n_r) overlap matrix."""
+    dev = l_vals.device
+    dtype = torch.promote_types(l_vals.dtype, r_vals.dtype)
+    n_r = r_vals.shape[0]
+    r_ok = r_alive & mask_r[:, None]
+    l_ok = l_alive & mask_l[:, None]
+    rv, lv = r_vals.to(dtype), l_vals.to(dtype)
+    if dtype.is_floating_point:  # NaN equals nothing
+        r_ok, l_ok = r_ok & ~rv.isnan(), l_ok & ~lv.isnan()
+    r_row = torch.nonzero(r_ok)[:, 0]
+    r_sorted, r_perm = torch.sort(rv[r_ok], stable=True)
+    r_row = r_row[r_perm]
+    l_idx = torch.nonzero(l_ok)[:, 0]
+    l_key = lv[l_ok]
+    lo = torch.searchsorted(r_sorted, l_key, right=False)
+    hi = torch.searchsorted(r_sorted, l_key, right=True)
+    n_match = hi - lo
+    total = int(n_match.sum())
+    if total == 0:
+        return torch.zeros((0,), dtype=torch.int64, device=dev)
+    owner = torch.repeat_interleave(torch.arange(l_key.shape[0], device=dev), n_match)
+    start = torch.cumsum(n_match, 0) - n_match
+    pos = lo[owner] + torch.arange(total, device=dev) - start[owner]
+    keys = l_idx[owner] * n_r + r_row[pos]
+    return torch.unique(keys)
+
+
+def prob_equijoin(
+    l_vals: torch.Tensor,
+    l_alive: torch.Tensor,
+    mask_l: torch.Tensor,
+    r_vals: torch.Tensor,
+    r_alive: torch.Tensor,
+    mask_r: torch.Tensor,
+    cap_out: int,
+    row_block: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Possible-world equi-join.  Returns (li, ri, valid, overflow) with
+    static output capacity ``cap_out``, exactly as the reference: the left
+    rows go in blocks of ``row_block``; each block keeps its first
+    ``cap_out`` pairs in row-major order, the blocks' pairs are concatenated
+    and cut to ``cap_out``, and the free slots hold ``(n_l, n_r, False)``.
+    ``overflow`` says that a block or the total held more than ``cap_out``.
+    Only the kept pairs are gathered; the free slots are padded once."""
+    n_l, n_r = l_vals.shape[0], r_vals.shape[0]
+    dev = l_vals.device
+    keys = _overlap_pairs(l_vals, l_alive, mask_l, r_vals, r_alive, mask_r)
+    li = keys // n_r
+    blk = li // row_block
+    # rank of each pair inside its row block (keys are sorted, so blocks are runs)
+    first = torch.searchsorted(blk, blk, right=False)
+    rank = torch.arange(keys.shape[0], device=dev) - first
+    keep = rank < cap_out
+    block_over = bool((~keep).any())
+    keys = keys[keep]
+    overflow = block_over or keys.shape[0] > cap_out
+    keys = keys[:cap_out]
+    m = keys.shape[0]
+    out_li = torch.full((cap_out,), n_l, dtype=torch.int32, device=dev)
+    out_ri = torch.full((cap_out,), n_r, dtype=torch.int32, device=dev)
+    valid = torch.zeros((cap_out,), dtype=torch.bool, device=dev)
+    out_li[:m] = (keys // n_r).to(torch.int32)
+    out_ri[:m] = (keys % n_r).to(torch.int32)
+    valid[:m] = True
+    return out_li, out_ri, valid, torch.tensor(overflow, device=dev)
+
+
+def dedupe_pairs(li: torch.Tensor, ri: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mark duplicate (li, ri) pairs invalid (keep first occurrence)."""
+    n = li.shape[0]
+    big = torch.iinfo(torch.int32).max
+    k1 = torch.where(valid, li, big)
+    k2 = torch.where(valid, ri, big)
+    perm = lex_order([k1, k2])
+    sk1, sk2 = k1[perm], k2[perm]
+    dup = torch.zeros((n,), dtype=torch.bool, device=li.device)
+    if n > 1:
+        dup[1:] = (sk1[1:] == sk1[:-1]) & (sk2[1:] == sk2[:-1])
+    keep = torch.zeros((n,), dtype=torch.bool, device=li.device)
+    keep[perm] = ~dup
+    return valid & keep
+
+
+def compact_order(valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first ``cap`` positions of the stable sort that puts valid slots
+    first (the reference's ``argsort(~valid, stable=True)[:cap]``; torch
+    sorts no bool, so the key is uint8)."""
+    return torch.sort((~valid).to(torch.uint8), stable=True).indices[:cap]
 
 
 # ---------------------------------------------------------------- group-by

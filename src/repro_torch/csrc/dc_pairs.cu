@@ -1,12 +1,15 @@
-// Fused both-role DC theta-join scan for Hopper (sm_90a).
+// DC theta-join scan for Hopper (sm_90a): the fused both-role pair scan and,
+// by a compile-time role switch, the single-role scan.
 //
-// Replaces repro/kernels/dc_pairs.py::dc_pair_scan_pallas (body _pair_kernel).
-// For every row i of the worklist's row blocks and every in-scope partner j of
-// its col blocks (j != i by global id), role t1 tests the atoms as written,
-// role t2 the flipped atoms with the column sides swapped.  Per row and role
-// it counts the partners for which every atom holds and keeps, per atom, the
-// min or max of the partner's value (the identity of the column's own dtype
-// when the count is 0).
+// Replaces repro/kernels/dc_pairs.py::dc_pair_scan_pallas (body _pair_kernel)
+// and dc_role_scan_pallas (body _role_kernel).  For every row i of the
+// worklist's row blocks and every in-scope partner j of its col blocks (j != i
+// by global id), role t1 tests the atoms as written, role t2 the flipped atoms
+// with the column sides swapped.  Per row and role it counts the partners for
+// which every atom holds and keeps, per atom, the min or max of the partner's
+// value (the identity of the column's own dtype when the count is 0).  The
+// role scan (kBoth = false) is role t1 alone: role t2's tile pruning,
+// compares and writes are compiled out, so it does half the pair scan's work.
 //
 // What bounds it on this card: operations.  Every worklist pair costs a few
 // 32-bit comparisons per role and the inputs are a few bytes per ROW, so the
@@ -63,7 +66,7 @@ struct DcArgs {
   const int32_t* rid;                 // (nrows,) worklist row block ids
   const int32_t* cid;                 // (ncols,) worklist col block ids
   int32_t* count1;                    // (nb*block,)
-  int32_t* count2;                    // (nb*block,)
+  int32_t* count2;                    // (nb*block,); unused by the role scan
   int32_t col_dtype[DC_MAX_DISTINCT];
   int32_t op1[DC_MAX_ATOMS];
   int32_t op2[DC_MAX_ATOMS];
@@ -183,7 +186,8 @@ __device__ __forceinline__ void store_narrow(void* p, int dt, int idx, uint32_t 
   }
 }
 
-__global__ void dc_pair_scan_kernel(const DcArgs a) {
+template <bool kBoth>
+__global__ void dc_scan_kernel(const DcArgs a) {
   extern __shared__ uint32_t tile[];  // [n_distinct][block] col values, then col scope
   uint8_t* tile_scope = (uint8_t*)(tile + a.n_distinct * a.block);
   const int t = threadIdx.x;
@@ -205,9 +209,11 @@ __global__ void dc_pair_scan_kernel(const DcArgs a) {
       lf[i] = is_float(a.col_dtype[li]);
       rf[i] = is_float(a.col_dtype[ri]);
       lv[i] = load_wide(a.cols[li], a.col_dtype[li], row);
-      rv[i] = load_wide(a.cols[ri], a.col_dtype[ri], row);
       s1[i] = identity(a.col_dtype[ri], a.red1[i]);
-      s2[i] = identity(a.col_dtype[li], a.red2[i]);
+      if (kBoth) {
+        rv[i] = load_wide(a.cols[ri], a.col_dtype[ri], row);
+        s2[i] = identity(a.col_dtype[li], a.red2[i]);
+      }
     }
   }
   int c1 = 0, c2 = 0;
@@ -215,15 +221,16 @@ __global__ void dc_pair_scan_kernel(const DcArgs a) {
   for (int ci = 0; ci < a.ncols; ++ci) {
     const int cb = a.cid[ci];
     // per-role tile pruning from the block bounds; uniform across the block
-    bool p1 = true, p2 = true;
+    bool p1 = true, p2 = kBoth;
 #pragma unroll
     for (int i = 0; i < DC_MAX_ATOMS; ++i) {
       if (i < a.n_atoms) {
         int li = a.l_idx[i], ri = a.r_idx[i];
         p1 = p1 && tile_possible(a.op1[i], row_min[li * nb + rb], row_max[li * nb + rb], lf[i],
                                  col_min[ri * nb + cb], col_max[ri * nb + cb], rf[i]);
-        p2 = p2 && tile_possible(a.op2[i], row_min[ri * nb + rb], row_max[ri * nb + rb], rf[i],
-                                 col_min[li * nb + cb], col_max[li * nb + cb], lf[i]);
+        if (kBoth)
+          p2 = p2 && tile_possible(a.op2[i], row_min[ri * nb + rb], row_max[ri * nb + rb], rf[i],
+                                   col_min[li * nb + cb], col_max[li * nb + cb], lf[i]);
       }
     }
     if (!p1 && !p2) continue;
@@ -250,7 +257,7 @@ __global__ void dc_pair_scan_kernel(const DcArgs a) {
               s1[i] = reduce(s1[i], tile[a.r_idx[i] * a.block + j], rf[i], a.red1[i]);
         }
       }
-      if (p2) {
+      if (kBoth && p2) {
         bool hold = true;
 #pragma unroll
         for (int i = 0; i < DC_MAX_ATOMS; ++i)
@@ -268,14 +275,26 @@ __global__ void dc_pair_scan_kernel(const DcArgs a) {
   }
 
   a.count1[row] = c1;
-  a.count2[row] = c2;
+  if (kBoth) a.count2[row] = c2;
 #pragma unroll
   for (int i = 0; i < DC_MAX_ATOMS; ++i) {
     if (i < a.n_atoms) {
       store_narrow(a.stat1[i], a.col_dtype[a.r_idx[i]], row, s1[i]);
-      store_narrow(a.stat2[i], a.col_dtype[a.l_idx[i]], row, s2[i]);
+      if (kBoth) store_narrow(a.stat2[i], a.col_dtype[a.l_idx[i]], row, s2[i]);
     }
   }
+}
+
+template <bool kBoth>
+static int dc_scan_launch(const DcArgs* args, void* stream) {
+  size_t smem = (size_t)args->n_distinct * args->block * sizeof(uint32_t) + args->block;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dc_scan_kernel<kBoth>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dc_scan_kernel<kBoth><<<args->nrows, args->block, smem, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -284,16 +303,14 @@ int dc_max_atoms() { return DC_MAX_ATOMS; }
 int dc_max_distinct() { return DC_MAX_DISTINCT; }
 int dc_args_size() { return (int)sizeof(DcArgs); }
 
-// Launch the scan on `stream`; returns cudaGetLastError() of the launch.
+// Launch the fused both-role scan on `stream`; returns cudaGetLastError().
 int dc_pair_scan_launch(const DcArgs* args, void* stream) {
-  size_t smem = (size_t)args->n_distinct * args->block * sizeof(uint32_t) + args->block;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dc_pair_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dc_pair_scan_kernel<<<args->nrows, args->block, smem, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return dc_scan_launch<true>(args, stream);
+}
+
+// Launch the role-t1 scan (count2, stat2 and op2/red2 unread).
+int dc_role_scan_launch(const DcArgs* args, void* stream) {
+  return dc_scan_launch<false>(args, stream);
 }
 
 }  // extern "C"

@@ -4,6 +4,8 @@ from the same seed).
 
 * ``ssb_lineorder``: Star-Schema-Benchmark-style lineorder with a
   configurable orderkey/suppkey cardinality and FD orderkey -> suppkey.
+* ``suppliers``: the supplier dimension table for join workloads
+  (FD address -> suppkey).
 * ``inject_fd_errors``: BART-style error injection — edits a fraction of
   rhs values per lhs group, returning ground truth.
 * ``inject_dc_errors``: perturbs values to create inequality-DC violating
@@ -41,6 +43,16 @@ def ssb_lineorder(
         "extended_price": rng.uniform(1000, 5000, n).astype(np.float32),
         "discount": rng.uniform(0.0, 0.5, n).astype(np.float32),
         "quantity": rng.integers(1, 50, n).astype(np.int32),
+    }
+
+
+def suppliers(n_suppkeys: int, seed: int = 1) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    addr = rng.permutation(n_suppkeys).astype(np.int32)  # address -> suppkey
+    return {
+        "suppkey": np.arange(n_suppkeys, dtype=np.int32),
+        "address": addr,
+        "region": rng.integers(0, 5, n_suppkeys).astype(np.int32),
     }
 
 

@@ -1,5 +1,5 @@
 """Blocked theta-join scans for DC violation detection: the CUDA kernel, its
-wrapper, and its plain PyTorch version.
+wrappers, and their plain PyTorch versions.
 
 The paper's DC detection partitions the comparison matrix and prunes
 partitions whose boundary ranges cannot produce a violation (§4.2).  The
@@ -8,18 +8,23 @@ pairs: role t1 evaluates the atoms as written, role t2 the flipped atoms
 with the column sides swapped.  For every row it returns the count of
 in-scope partners ``j != i`` (by global row id) for which all atoms hold,
 and per atom the min or max partner value, or the reduce identity of the
-column's own dtype when the count is 0.
+column's own dtype when the count is 0.  The role scan is role t1 alone,
+for arbitrary left and right columns.
 
 Three pieces live here, beside each other:
 
-* ``dc_pair_scan`` — the wrapper.  On CPU tensors it runs the plain version;
-  on CUDA tensors it launches ``csrc/dc_pairs.cu`` (it replaces the TPU
-  kernel ``repro/kernels/dc_pairs.py::dc_pair_scan_pallas``) and counts the
-  launch in ``LAUNCHES``.  There is no fallback from the card to the plain
-  version; ``plain_version()`` forces it explicitly for comparisons.
-* ``dc_pair_scan_plain`` — the blocked loop of the reference oracle
-  (``repro.kernels.ref.dc_role_scan`` twice), with XLA's min/max semantics:
-  NaN propagates and -0.0 orders below +0.0.
+* ``dc_pair_scan`` and ``dc_role_scan`` — the wrappers.  On CPU tensors
+  they run the plain versions; on CUDA tensors they launch
+  ``csrc/dc_pairs.cu`` (which replaces the TPU kernels
+  ``repro/kernels/dc_pairs.py::dc_pair_scan_pallas`` and
+  ``dc_role_scan_pallas``; the role scan is the same kernel with role t2
+  compiled out) and count the launch in ``LAUNCHES``.  There is no fallback
+  from the card to the plain version; ``plain_version()`` forces it
+  explicitly for comparisons.
+* ``dc_pair_scan_plain`` and ``dc_role_scan_plain`` — the blocked loop of
+  the reference oracle (``repro.kernels.ref.dc_role_scan``, twice for the
+  pair scan), with XLA's min/max semantics: NaN propagates and -0.0 orders
+  below +0.0.
 * host helpers shared by both: ``resolve_block_ids``, ``distinct_columns``,
   ``_block_bounds`` and ``_tile_possible`` (the per-tile pruning predicate
   the kernel evaluates on the card).
@@ -51,7 +56,7 @@ _DTYPE_CODE = {
 }
 
 # launches of the CUDA kernel, counted by the wrapper at each launch
-LAUNCHES = {"dc_pair_scan": 0}
+LAUNCHES = {"dc_pair_scan": 0, "dc_role_scan": 0}
 
 _state = threading.local()
 
@@ -230,9 +235,10 @@ def _tile_reduce(viol, r_t, ident, reduce: str) -> torch.Tensor:
     return out.to(r_t.dtype)
 
 
-def _role_scan_plain(l_cols, r_cols, ops, row_scope, col_scope, reduces,
-                     block, rid, cid):
-    """One role of the reference oracle's blocked loop over col blocks."""
+def dc_role_scan_plain(l_cols, r_cols, ops, row_scope, col_scope, reduces,
+                       block, rid, cid):
+    """One role of the reference oracle's blocked loop over col blocks
+    (``repro.kernels.ref.dc_role_scan``).  Returns ``(count, stats)``."""
     n = l_cols[0].shape[0]
     dev = row_scope.device
     nb = -(-n // block)
@@ -295,10 +301,10 @@ def dc_pair_scan_plain(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     """The plain PyTorch version of the fused scan: the two role scans of the
     reference oracle (``repro.kernels.ref.dc_pair_scan``).  Returns
     ``(t1_count, t1_stats, t2_count, t2_stats)``."""
-    t1c, t1s = _role_scan_plain(
+    t1c, t1s = dc_role_scan_plain(
         l_cols, r_cols, ops, row_scope, col_scope, t1_reduces, block, rid, cid
     )
-    t2c, t2s = _role_scan_plain(
+    t2c, t2s = dc_role_scan_plain(
         r_cols, l_cols, flipped, row_scope, col_scope, t2_reduces, block, rid, cid
     )
     return t1c, t1s, t2c, t2s
@@ -344,8 +350,9 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build.build_library("dc_pairs")))
-            lib.dc_pair_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            lib.dc_pair_scan_launch.restype = ctypes.c_int
+            for fn in (lib.dc_pair_scan_launch, lib.dc_role_scan_launch):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.dc_args_size.restype = ctypes.c_int
             for fn in (lib.dc_max_atoms, lib.dc_max_distinct):
                 fn.restype = ctypes.c_int
@@ -374,8 +381,12 @@ def block_bounds(distinct, row_scope, col_scope, nb, block) -> torch.Tensor:
     return torch.stack(words).contiguous()
 
 
-def _dc_pair_scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
-                       t1_reduces, t2_reduces, block, rid, cid):
+def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+               t1_reduces, t2_reduces, block, rid, cid):
+    """Launch the kernel over the worklist ``rid x cid``: both roles, or role
+    t1 alone when ``flipped`` is None (then the t2 outputs are None)."""
+    both = flipped is not None
+    name = "dc_pair_scan" if both else "dc_role_scan"
     n = l_cols[0].shape[0]
     dev = row_scope.device
     n_atoms = len(ops)
@@ -384,7 +395,7 @@ def _dc_pair_scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     distinct, l_idx, r_idx = distinct_columns(l_cols, r_cols)
     if n_atoms > MAX_ATOMS or len(distinct) > MAX_DISTINCT:
         raise ValueError(
-            f"dc_pair_scan kernel takes at most {MAX_ATOMS} atoms over "
+            f"{name} kernel takes at most {MAX_ATOMS} atoms over "
             f"{MAX_DISTINCT} distinct columns, got {n_atoms} over {len(distinct)}"
         )
     if not 1 <= block <= 1024:
@@ -404,14 +415,17 @@ def _dc_pair_scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     bounds = block_bounds(cols, rs, cs, nb, block)
     rid_t = torch.as_tensor(rid, dtype=torch.int32, device=dev)
     cid_t = torch.as_tensor(cid, dtype=torch.int32, device=dev)
+    count2 = stat2 = None
     if rid.size == nb:
         count1 = torch.empty((npad,), dtype=torch.int32, device=dev)
-        count2 = torch.empty((npad,), dtype=torch.int32, device=dev)
         stat1 = [torch.empty((npad,), dtype=c.dtype, device=dev) for c in r_cols]
-        stat2 = [torch.empty((npad,), dtype=c.dtype, device=dev) for c in l_cols]
+        if both:
+            count2 = torch.empty((npad,), dtype=torch.int32, device=dev)
+            stat2 = [torch.empty((npad,), dtype=c.dtype, device=dev) for c in l_cols]
     else:  # rows outside the worklist keep count 0 and the identity
         count1, stat1 = _empty_role(npad, r_cols, t1_reduces, dev)
-        count2, stat2 = _empty_role(npad, l_cols, t2_reduces, dev)
+        if both:
+            count2, stat2 = _empty_role(npad, l_cols, t2_reduces, dev)
 
     args = _DcArgs()
     for i, c in enumerate(cols):
@@ -419,30 +433,44 @@ def _dc_pair_scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
         args.col_dtype[i] = _DTYPE_CODE[c.dtype]
     for i in range(n_atoms):
         args.stat1[i] = stat1[i].data_ptr()
-        args.stat2[i] = stat2[i].data_ptr()
         args.op1[i] = _OP_CODE[ops[i]]
-        args.op2[i] = _OP_CODE[flipped[i]]
         args.red1[i] = _RED_CODE[t1_reduces[i]]
-        args.red2[i] = _RED_CODE[t2_reduces[i]]
         args.l_idx[i] = l_idx[i]
         args.r_idx[i] = r_idx[i]
+        if both:
+            args.stat2[i] = stat2[i].data_ptr()
+            args.op2[i] = _OP_CODE[flipped[i]]
+            args.red2[i] = _RED_CODE[t2_reduces[i]]
     args.bounds = bounds.data_ptr()
     args.row_scope = rs.data_ptr()
     args.col_scope = cs.data_ptr()
     args.rid = rid_t.data_ptr()
     args.cid = cid_t.data_ptr()
     args.count1 = count1.data_ptr()
-    args.count2 = count2.data_ptr()
+    args.count2 = count2.data_ptr() if both else None
     args.nrows, args.ncols, args.nb, args.block = len(rid), len(cid), nb, block
     args.n_distinct, args.n_atoms = len(cols), n_atoms
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().dc_pair_scan_launch(ctypes.byref(args), stream)
+    lib = _library()
+    launch = lib.dc_pair_scan_launch if both else lib.dc_role_scan_launch
+    err = launch(ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError(f"dc_pair_scan kernel launch failed: CUDA error {err}")
-    LAUNCHES["dc_pair_scan"] += 1
-    return (
-        count1[:n], [s[:n] for s in stat1], count2[:n], [s[:n] for s in stat2]
-    )
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    out1 = (count1[:n], [s[:n] for s in stat1])
+    if not both:
+        return out1
+    return out1 + (count2[:n], [s[:n] for s in stat2])
+
+
+def _use_plain(row_scope: torch.Tensor, name: str) -> bool:
+    """CPU tensors, or the ``plain_version()`` context, take the plain
+    version; CUDA tensors the kernel; any other device raises."""
+    if row_scope.device.type == "cpu" or getattr(_state, "plain", False):
+        return True
+    if row_scope.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {row_scope.device}")
+    return False
 
 
 def dc_pair_scan(l_cols, r_cols, ops, flipped, row_scope, col_scope,
@@ -459,8 +487,18 @@ def dc_pair_scan(l_cols, r_cols, ops, flipped, row_scope, col_scope,
         return t1c, t1s, t2c, t2s
     args = (l_cols, r_cols, ops, flipped, row_scope, col_scope,
             t1_reduces, t2_reduces, block, rid, cid)
-    if row_scope.device.type == "cpu" or getattr(_state, "plain", False):
+    if _use_plain(row_scope, "dc_pair_scan"):
         return dc_pair_scan_plain(*args)
-    if row_scope.device.type != "cuda":
-        raise ValueError(f"dc_pair_scan: no kernel for device {row_scope.device}")
-    return _dc_pair_scan_cuda(*args)
+    return _scan_cuda(*args)
+
+
+def dc_role_scan(l_cols, r_cols, ops, row_scope, col_scope, reduces, block, rid, cid):
+    """Role-t1 scan over the worklist ``rid x cid``: ``(count, stats)``.
+    Dispatch as ``dc_pair_scan``; an empty worklist launches nothing."""
+    if rid.size == 0 or cid.size == 0:
+        return _empty_role(l_cols[0].shape[0], r_cols, reduces, row_scope.device)
+    if _use_plain(row_scope, "dc_role_scan"):
+        return dc_role_scan_plain(l_cols, r_cols, ops, row_scope, col_scope, reduces,
+                                  block, rid, cid)
+    return _scan_cuda(l_cols, r_cols, ops, None, row_scope, col_scope, reduces, None,
+                      block, rid, cid)

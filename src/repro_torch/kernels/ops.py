@@ -1,12 +1,12 @@
 """Dispatch wrappers for the port's kernels, and the DC atom encodings.
 
-The counterpart of ``repro.kernels.ops`` for the DC pair scan (the same
-``dc_pair_scan`` signature, ``TileStats`` launch telemetry and
-exactness-proved atom encodings) and for flash attention
-(``flash_attention``).  Where the reference picks its Pallas kernel or its
+The counterpart of ``repro.kernels.ops``: the single-role ``dc_role_scan``
+and the fused ``dc_pair_scan`` (the same signatures, ``TileStats`` launch
+telemetry and exactness-proved atom encodings), ``semijoin`` and
+``flash_attention``.  Where the reference picks its Pallas kernel or its
 jnp oracle by backend, the port picks by the device the tensors live on
-(``kernels.dc_pairs.dc_pair_scan``, ``kernels.flash_attention``): the CUDA
-kernel on the card, the plain PyTorch version on the CPU.
+(``kernels.dc_pairs``, ``kernels.semijoin``, ``kernels.flash_attention``):
+the CUDA kernel on the card, the plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +18,40 @@ import torch
 
 from repro_torch.kernels import dc_pairs
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import semijoin as _semijoin
 from repro_torch.kernels.dc_pairs import distinct_columns, resolve_block_ids
+
+
+def dc_role_scan(
+    l_cols: Sequence[torch.Tensor],
+    r_cols: Sequence[torch.Tensor],
+    ops: Sequence[str],
+    row_scope: torch.Tensor,
+    col_scope: torch.Tensor,
+    reduces: Sequence[str],
+    block: int = 256,
+    row_blocks: Tuple[int, int] | None = None,
+    col_blocks: Tuple[int, int] | None = None,
+    row_block_ids=None,
+    col_block_ids=None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One-role DC scan: for every row i in ``row_scope``, the count of
+    partners j in ``col_scope`` (j != i) for which every atom
+    ``l_cols[a][i] op_a r_cols[a][j]`` holds, and per atom the min or max
+    (``reduces[a]``) of ``r_cols[a][j]`` over them.  ``row_blocks=(lo, hi)``
+    scans only that strip of row blocks (DESIGN.md §11), ``col_blocks`` the
+    partner strip (DESIGN.md §12), and ``row_block_ids`` /
+    ``col_block_ids`` an arbitrary block worklist (DESIGN.md §15); rows
+    outside get count 0 and the reduce identity.  A strip or id outside the
+    grid raises ``ValueError``."""
+    n = l_cols[0].shape[0]
+    nb = -(-n // block)
+    rid = resolve_block_ids(nb, row_blocks, row_block_ids)
+    cid = resolve_block_ids(nb, col_blocks, col_block_ids)
+    return dc_pairs.dc_role_scan(
+        list(l_cols), list(r_cols), list(ops), row_scope, col_scope, list(reduces),
+        block, rid, cid,
+    )
 
 
 class TileStats(NamedTuple):
@@ -236,6 +269,11 @@ def decode_stat(
     else:
         dec = stat.to(orig_dtype)
     return torch.where(count > 0, dec, torch.tensor(ident, dtype=dec.dtype, device=dec.device))
+
+
+# ----------------------------------------------------------------- semijoin
+# the dispatch lives beside the kernel and its plain version
+semijoin = _semijoin.semijoin
 
 
 # ---------------------------------------------------------- flash attention

@@ -1,7 +1,9 @@
-"""The port on the card: the CUDA ``dc_pair_scan`` and ``flash_attention``
-kernels against their plain PyTorch versions, the whole ``Daisy`` on the
-card against the same engine on the CPU, and the LM's prefill through the
-flash kernel against the same prefill through the plain version.  Every
+"""The port on the card: the CUDA ``dc_pair_scan``, ``dc_role_scan``,
+``semijoin`` and ``flash_attention`` kernels against their plain PyTorch
+versions, the whole ``Daisy`` (SP and join queries) and the offline cleaner
+on the card against the same engines on the CPU, and the LM's prefill
+through the flash kernel against the same prefill through the plain
+version.  Every
 test is marked ``gpu`` and skips without a CUDA device.  The file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
@@ -17,12 +19,19 @@ import torch
 from repro_torch.core.constraints import DC, FD, Atom, flip_op
 from repro_torch.core.detect import _T1_REDUCE
 from repro_torch.core.executor import Daisy, DaisyConfig
-from repro_torch.core.operators import Pred, Query
+from repro_torch.core.offline import OfflineCleaner
+from repro_torch.core.operators import GroupBySpec, JoinClause, Pred, Query
 from repro_torch.core.relation import make_relation
-from repro_torch.data.generators import inject_dc_errors, inject_fd_errors, ssb_lineorder
+from repro_torch.data.generators import (
+    inject_dc_errors,
+    inject_fd_errors,
+    ssb_lineorder,
+    suppliers,
+)
 from repro_torch.kernels import dc_pairs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import semijoin as sj
 from repro_torch.testing import relation_to_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tt
@@ -96,6 +105,142 @@ def test_daisy_on_card_matches_cpu(card):
                 np.testing.assert_array_equal(a[field][k].view(np.uint8),
                                               b[field][k].view(np.uint8))
     assert dc_pairs.LAUNCHES["dc_pair_scan"] > before
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+        t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int16, torch.int8,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("restr", [{}, dict(row_blocks=(1, 3)), dict(col_blocks=(0, 2)),
+                                   dict(row_block_ids=[3, 0], col_block_ids=[1, 3])])
+def test_role_scan_kernel_matches_plain_version(card, dtype, restr):
+    """Three atoms over two columns on one side and three on the other,
+    n not a multiple of the block."""
+    rng = np.random.default_rng(2)
+    n = 1000
+    cols = [torch.from_numpy(rng.integers(-50, 50, n).astype(np.float32)).to(dtype).to(card)
+            for _ in range(3)]
+    rs = torch.from_numpy(rng.random(n) < 0.8).to(card)
+    cs = torch.from_numpy(rng.random(n) < 0.9).to(card)
+    args = ([cols[0], cols[1], cols[0]], cols, ["<", "!=", ">="], rs, cs, ["max", "min", "min"])
+    before = dc_pairs.LAUNCHES["dc_role_scan"]
+    got_c, got_s = tops.dc_role_scan(*args, block=256, **restr)
+    assert dc_pairs.LAUNCHES["dc_role_scan"] == before + 1
+    with dc_pairs.plain_version():
+        want_c, want_s = tops.dc_role_scan(*args, block=256, **restr)
+    assert torch.equal(got_c, want_c)
+    for g, w in zip(got_s, want_s):
+        assert g.dtype == w.dtype == dtype and torch.equal(_bits(g), _bits(w))
+
+
+def test_role_scan_kernel_nan_and_signed_zeros(card):
+    special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf], np.float32)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.choice(special, 700)).to(card)
+    y = torch.from_numpy(rng.choice(special, 700)).to(card)
+    ones = torch.ones(700, dtype=torch.bool, device=card)
+    for ops, reduces in ((["!="], ["min"]), (["!=", "<"], ["max", "max"]),
+                         (["<=", ">="], ["min", "max"])):
+        args = ([x, y][:len(ops)], [y, x][:len(ops)], ops, ones, ones, reduces)
+        got_c, got_s = tops.dc_role_scan(*args, block=128)
+        with dc_pairs.plain_version():
+            want_c, want_s = tops.dc_role_scan(*args, block=128)
+        assert torch.equal(got_c, want_c)
+        for g, w in zip(got_s, want_s):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("n,m,block", [(5, 7, 64), (64, 64, 256), (100, 257, 64),
+                                       (513, 100, 256), (70_000, 3_000, 512)])
+def test_semijoin_kernel_matches_plain_version(card, n, m, block):
+    rng = np.random.default_rng(n)
+    q = torch.from_numpy(rng.integers(0, 4 * m, n).astype(np.int32)).to(card)
+    k = torch.from_numpy(rng.integers(0, 4 * m, m).astype(np.int32)).to(card)
+    qm = torch.from_numpy(rng.random(n) < 0.8).to(card)
+    for km in (torch.from_numpy(rng.random(m) < 0.8).to(card),
+               torch.zeros(m, dtype=torch.bool, device=card)):
+        before = sj.LAUNCHES["semijoin"]
+        got = tops.semijoin(q, qm, k, km, block=block)
+        assert sj.LAUNCHES["semijoin"] == before + 1
+        with sj.plain_version():
+            want = tops.semijoin(q, qm, k, km, block=block)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+        assert torch.equal(got, torch.isin(q, k[km]) & qm)
+
+
+def test_semijoin_kernel_raises_on_other_dtypes(card):
+    x = torch.zeros(8, dtype=torch.int64, device=card)
+    m = torch.ones(8, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        tops.semijoin(x, m, x, m)
+
+
+def _join_db(dev, n_lo=4096, n_sup=64):
+    lo = ssb_lineorder(n_lo, n_lo // 8, n_sup, seed=31)
+    ds_lo = inject_fd_errors(lo, "orderkey", "suppkey", 1.0, 0.1, n_sup, seed=32)
+    ds_sup = inject_fd_errors(suppliers(n_sup, seed=33), "address", "suppkey", 1.0, 0.1,
+                              n_sup, seed=34)
+    db = {"lineorder": make_relation(ds_lo.data, overlay=["orderkey", "suppkey"], k=8,
+                                     rules=["phi"], device=dev),
+          "suppliers": make_relation(ds_sup.data, overlay=["address", "suppkey"], k=8,
+                                     rules=["psi"], device=dev)}
+    rules = {"lineorder": [FD("phi", "orderkey", "suppkey")],
+             "suppliers": [FD("psi", "address", "suppkey")]}
+    return db, rules
+
+
+def test_join_queries_on_card_match_cpu(card):
+    """fig13's range joins and the region group-by: equal lineage, reports
+    and overlays on the card and on the CPU."""
+    engines = {dev: Daisy(*_join_db(dev), DaisyConfig(join_capacity=16384,
+                                                      use_cost_model=False), device=dev)
+               for dev in ("cpu", card)}
+    queries = [Query("lineorder", preds=(Pred("suppkey", ">=", a), Pred("suppkey", "<", a + 16)),
+                     joins=(JoinClause("suppliers", "suppkey", "suppkey"),))
+               for a in (0, 16, 32)]
+    queries.append(Query("lineorder", joins=(JoinClause("suppliers", "suppkey", "suppkey"),),
+                         groupby=GroupBySpec(("region",), "count", table="suppliers")))
+    for q in queries:
+        res = {dev: d.execute(q) for dev, d in engines.items()}
+        a, b = res["cpu"], res[card]
+        assert a.report.asdict() == b.report.asdict()
+        for t in a.join.rows:
+            assert torch.equal(a.join.rows[t], b.join.rows[t].cpu())
+        assert torch.equal(a.join.valid, b.join.valid.cpu())
+        if a.groups is not None:
+            torch.testing.assert_close(a.groups["count"], b.groups["count"].cpu(),
+                                       rtol=1e-6, atol=0)
+        for table in ("lineorder", "suppliers"):
+            x = relation_to_numpy(engines["cpu"].db[table])
+            y = relation_to_numpy(engines[card].db[table])
+            for field in ("cand", "ccount", "ckind", "checked"):
+                for k in x[field]:
+                    np.testing.assert_array_equal(x[field][k].view(np.uint8),
+                                                  y[field][k].view(np.uint8))
+
+
+def test_offline_on_card_matches_cpu(card):
+    """The offline DC clean is one full-matrix kernel launch."""
+    clean = ssb_lineorder(2000, 250, 12, seed=21)
+    data = inject_dc_errors(clean, "discount", 0.05, 0.3, seed=23).data
+    dc = DC("dc_pd", [Atom("extended_price", "<", "extended_price"),
+                      Atom("discount", ">", "discount")])
+    offs = {}
+    for dev in ("cpu", card):
+        rel = make_relation(data, overlay=["extended_price", "discount"], k=8,
+                            rules=["dc_pd"], device=dev)
+        offs[dev] = OfflineCleaner({"t": rel}, {"t": [dc]})
+    before = dc_pairs.LAUNCHES["dc_pair_scan"]
+    for off in offs.values():
+        off.clean_all()
+    assert dc_pairs.LAUNCHES["dc_pair_scan"] == before + 1
+    a, b = relation_to_numpy(offs["cpu"].db["t"]), relation_to_numpy(offs[card].db["t"])
+    for field in ("cand", "ccount", "ckind", "checked"):
+        for k in a[field]:
+            np.testing.assert_array_equal(a[field][k].view(np.uint8), b[field][k].view(np.uint8))
 
 
 def _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=0):

@@ -7,6 +7,8 @@ propagation under ``!=`` and the sign of a zero extremum are pinned too.
 The CUDA kernel itself is held against the plain version by
 ``tests/test_torch_cuda.py`` (marked ``gpu``) and by ``chip_smoke.py``."""
 
+import gc
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,15 @@ from repro_torch.kernels import dc_pairs
 from repro_torch.kernels import ops as tops
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 SETTINGS = dict(max_examples=10, deadline=None)
 OPS = ["<", "<=", ">", ">=", "==", "!="]

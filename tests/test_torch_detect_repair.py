@@ -7,6 +7,8 @@ values and accuracy counts.  Float group-by aggregates are compared with
 ``rtol=1e-6``, and only there: the two packages sum probabilities in a
 different order."""
 
+import gc
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,15 @@ from repro_torch.core.relation import make_relation as tmake
 from repro_torch.testing import relation_from_numpy, relation_to_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 SETTINGS = dict(max_examples=10, deadline=None)
 

@@ -3,6 +3,8 @@ the possible-world predicate, probabilities, and the device contract.
 
 Every comparison here is exact (values, dtypes and bit patterns)."""
 
+import gc
+import jax
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,15 @@ from repro_torch.core.executor import Daisy, DaisyConfig
 from repro_torch.testing import relation_from_numpy, relation_to_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 OPS = ("==", "!=", "<", "<=", ">", ">=")
 

@@ -2,6 +2,8 @@
 rows, the iteration count and the converged flag are exactly equal, on the
 paper's Cities example and on random relations."""
 
+import gc
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,15 @@ from repro_torch.core.constraints import FD
 from repro_torch.core.relation import make_relation as tmake
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 SETTINGS = dict(max_examples=10, deadline=None)
 N_ROWS = 24

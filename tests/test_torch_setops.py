@@ -7,8 +7,11 @@ keys, multi-column keys, signed zeros, NaN and candidate overflow
 exactly, including the bit patterns of float values (a -0.0 carried as a
 candidate must stay -0.0)."""
 
+import gc
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
@@ -16,6 +19,15 @@ from repro.core import setops as jset
 from repro_torch.core import setops as tset
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled():
+    """Drop JAX's compiled executables when this file's tests end: XLA's CPU
+    backend keeps each one mapped in memory for the life of the process."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 SETTINGS = dict(max_examples=10, deadline=None)
 # fixed row counts keep the reference's per-shape compilations few; the
