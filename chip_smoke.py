@@ -7,8 +7,9 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu``,
-   ``flash_attention.cu`` and ``semijoin.cu``) with nvcc, one process each,
-   at once; log what ``ptxas`` says of registers and spills;
+   ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
+   ``semijoin.cu``) with nvcc, one process each, at once; log what
+   ``ptxas`` says of registers and spills;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros; then its time, the plain version's time and its bound at
@@ -16,18 +17,27 @@ Phases, each of which must pass or the script exits non-zero:
 4. the DC role scan (the same kernel with role t2 compiled out) against its
    plain version, bit for bit, over the same kinds of cases; then its time,
    the plain version's and its bound on fig12's DC at n = 131,072, one role;
-5. the semijoin kernel against its plain version, bit for bit, at the
-   reference kernel tests' shapes and with an all-false key mask; then its
-   time, the plain version's, ``torch.isin``'s and its bound at SF1 size
-   (6,000,000 lineorder orderkeys against 75,000 keys);
-6. flash attention against its plain version on the card (float32
-   ``atol=rtol=2e-5``, bf16 ``atol=3e-2``: the reference tests'
-   tolerances) over qwen3-4b's shapes (contiguous, and as the (b, s, h, d)
-   views the model passes), float32 I/O, a 1024 window at
-   S 4096, non-causal Sq 1 and 77 against Sk 1000, D 64, group sizes 1, 4
-   and 8, and a uniform V; then its time, the plain version's, the
-   ``scaled_dot_product_attention`` yardstick's and its bound at the
-   prefill shape B 2 x S 2048;
+5. the semijoin kernel (a hash build and probe) against its plain version
+   and ``torch.isin``, bit for bit, at the reference kernel tests' shapes,
+   with an all-false key mask, INT32_MIN, INT32_MAX, -1 and 0 as keys,
+   heavy duplicates (a copy masked out while its twin is in), keys that
+   are multiples of the table size, m = 0, every key masked out, n = 0 and
+   200,000 queries over SF1's 1,500,000-orderkey domain; then its time,
+   the plain version's, ``torch.isin``'s and its bound at SF1 size
+   (6,000,000 lineorder orderkeys against 75,000 keys), where it must be
+   no slower than ``torch.isin``;
+6. both flash-attention kernels against the plain version on the card
+   (float32 ``atol=rtol=2e-5``, bf16 ``atol=3e-2``: the reference tests'
+   tolerances), each case checked to launch the kernel ``kernel_variant``
+   chooses: the wgmma kernel (bf16, D 64 and 128) over qwen3-4b's prefill
+   (contiguous, and as the (b, s, h, d) views the model passes), group
+   sizes 1, 4 and 8, D 64 ragged S 300, non-causal Sq 77 against Sk 1000,
+   windows 64 at ragged S 500 and 1024 at S 4096, and a uniform V; the
+   CUDA-core kernel over float32 I/O, non-causal Sq 1 and 77, D 64, D 256
+   in bf16, a uniform V, and the prefill shape; then both kernels' times
+   at the prefill shape B 2 x S 2048 in alternating turns, beside the
+   plain version's, the ``scaled_dot_product_attention`` yardstick's and
+   the bound;
 7. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
    against the same engine on the CPU at 65,536 rows, query by query; then
    SSB lineorder at scale factor 1 (6,000,000 rows), 20 range queries;
@@ -44,26 +54,34 @@ Phases, each of which must pass or the script exits non-zero:
     launch);
 11. qwen3-4b at its published width (36 layers, d_model 2560, vocab
    151,936) with weights from a seed: in float32 compute, prefill(256) then
-   decode(token 256) against forward(257) at the last position; in bf16
-   compute, ``prefill`` of B 2 x 2048 tokens (exactly 36 flash launches)
-   and 32 greedy ``decode_step``s, and the same prefill through the plain
-   attention version; then ``torch.profiler``'s device time of that prefill
-   and of four more decode steps on the main run's cache;
+   decode(token 256) against forward(257) at the last position, and
+   prefill(256) and forward(257), every position, through the CUDA-core
+   kernel against the plain attention version at the reference's
+   ``atol=rtol=2e-3``; in bf16 compute, ``prefill`` of B 2 x 2048 tokens
+   (exactly 36 launches of the wgmma kernel) and 32 greedy
+   ``decode_step``s, the same prefill through the plain attention version
+   (logits within 5% of the largest), and each of the 36 layers' live
+   (q, k, v), captured in one more prefill, through the kernel against the
+   plain version at bf16 ``atol=3e-2``; then ``torch.profiler``'s device
+   time of that prefill and of four more decode steps on the main run's
+   cache;
 12. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
    8-16 prompt tokens, 16 new tokens each, through 4 slots.
 
 Each main path (FD, DC, join, offline, the LM prefill and decode, the
 engine) runs with every kernel's launch count at 0, read just after; the
-counts must be as ``PATH_LAUNCHES`` says, and the role scan and the
-semijoin lie on none of them.  The line before the last is a JSON object
-describing each kernel, its launches summed over the paths and given per
-path; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+counts must be as ``PATH_LAUNCHES`` says, and the role scan, the semijoin
+and the CUDA-core flash kernel lie on none of them.  The line before the
+last is a JSON object describing each kernel, its launches summed over
+the paths and given per path; the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA
 device, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -113,10 +131,12 @@ SEMIJOIN_KEYS = SF1_ORDERKEYS // N_QUERIES
 JOIN_CAPACITY = 1 << 24
 # Launches each main path must make (None: at least one); a kernel not
 # named launches none there.  dc_role_scan and semijoin lie on no path:
-# only their kernels.ops entry points call them.
+# only their kernels.ops entry points call them.  The LM prefill's 36
+# attention calls are bf16 at head dim 128: the wgmma kernel's; the
+# CUDA-core flash kernel (float32, other head dims) lies on no path.
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
-    "lm": {"flash_attention": 36}, "engine": {},
+    "lm": {"flash_attention_wgmma": 36}, "engine": {},
 }
 
 
@@ -496,31 +516,74 @@ def semijoin_phase(dev):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    def masks(n, m, pq=0.8, pk=0.8):
+        return t(rng.random(n) < pq), t(rng.random(m) < pk)
+
     cases = []
     for n, m in ((5, 7), (64, 64), (100, 257), (513, 100)):  # tests/test_kernels.py
         q, k = t(rng.integers(0, 40, n).astype(np.int32)), t(rng.integers(0, 40, m).astype(np.int32))
-        qm, km = t(rng.random(n) < 0.8), t(rng.random(m) < 0.8)
+        qm, km = masks(n, m)
         for block in (64, 256):
             cases.append((f"n={n} m={m} block={block}", (q, qm, k, km), block))
     q, k = t(np.arange(10, dtype=np.int32)), t(np.arange(10, dtype=np.int32))
     cases.append(("all-false key mask", (q, t(np.ones(10, bool)), k, t(np.zeros(10, bool))), 512))
     q = t(rng.integers(0, 50_000, 200_000).astype(np.int32))
     k = t(rng.integers(0, 50_000, 5_000).astype(np.int32))
-    cases.append(("n=200000 m=5000 block=512", (q, t(rng.random(200_000) < 0.9), k,
-                                                t(rng.random(5_000) < 0.7)), 512))
+    qm, km = masks(200_000, 5_000, 0.9, 0.7)
+    cases.append(("n=200000 m=5000 block=512", (q, qm, k, km), 512))
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    extremes = np.array([lo, hi, -1, 0], np.int32)
+    q = t(np.concatenate([extremes, extremes + np.array([1, -1, -1, 1], np.int32),
+                          rng.integers(lo, hi, 1000, dtype=np.int64).astype(np.int32)]))
+    k = t(np.concatenate([extremes, rng.integers(-5, 5, 50).astype(np.int32)]))
+    cases.append(("INT32_MIN, INT32_MAX, -1, 0 as keys",
+                  (q, t(np.ones(q.shape[0], bool)), k, t(np.ones(k.shape[0], bool))), 512))
+    # every key value 20 times, one copy of each masked out and its twins in,
+    # and values whose every copy is out
+    vals = rng.integers(0, 3_000, 1_500).astype(np.int32)
+    k_np = np.repeat(vals, 20)
+    km_np = np.ones(k_np.shape[0], bool)
+    km_np[::20] = False
+    km_np[np.isin(k_np, vals[:100])] = False
+    perm = rng.permutation(k_np.shape[0])
+    q = t(rng.integers(0, 3_500, 50_000).astype(np.int32))
+    cases.append(("heavy duplicates", (q, t(rng.random(50_000) < 0.9), t(k_np[perm]),
+                                       t(km_np[perm])), 512))
+    slots = sj.table_slots(4_000)
+    q = t((rng.integers(-40, 40, 20_000) * slots).astype(np.int32))
+    k = t((np.arange(-20, 20) * slots).astype(np.int32).repeat(100))
+    cases.append((f"keys multiples of the table size {slots}",
+                  (q, t(np.ones(20_000, bool)), k, t(np.ones(4_000, bool))), 512))
+    q = t(rng.integers(0, 100, 1000).astype(np.int32))
+    empty_k = t(np.zeros(0, np.int32))
+    cases.append(("m=0", (q, t(np.ones(1000, bool)), empty_k, t(np.zeros(0, bool))), 512))
+    k = t(rng.integers(0, 100, 500).astype(np.int32))
+    cases.append(("every key masked out", (q, t(np.ones(1000, bool)), k, t(np.zeros(500, bool))),
+                  512))
+    cases.append(("n=0", (t(np.zeros(0, np.int32)), t(np.zeros(0, bool)), k,
+                          t(np.ones(500, bool))), 512))
+    q = t(rng.integers(0, SF1_ORDERKEYS, 200_000).astype(np.int32))
+    k = t(rng.integers(0, SF1_ORDERKEYS, SF1_ORDERKEYS).astype(np.int32))
+    cases.append((f"n=200000 m={SF1_ORDERKEYS} (SF1's orderkey domain)",
+                  (q, t(np.ones(200_000, bool)), k, t(np.ones(SF1_ORDERKEYS, bool))), 512))
+
     err = 0.0
     sj.reset_launch_counts()
     for name, args, block in cases:
         got = kops.semijoin(*args, block=block)
         with sj.plain_version():
             want = kops.semijoin(*args, block=block)
+        library = torch.isin(args[0], args[2][args[3]]) & args[1]
         torch.cuda.synchronize()
         if got.dtype != torch.bool or got.shape != args[0].shape or not torch.equal(got, want):
             fail(f"semijoin {name}: kernel differs from the plain version")
+        if not torch.equal(got, library):
+            fail(f"semijoin {name}: kernel differs from torch.isin")
         err = max(err, max_abs_err(got.to(torch.float32), want.to(torch.float32)))
-        log(f"semijoin == plain: {name}: bit-identical ({int(got.sum())} hits)")
-    if sj.LAUNCHES["semijoin"] != len(cases):
-        fail(f"{sj.LAUNCHES['semijoin']} semijoin launches for {len(cases)} cases")
+        log(f"semijoin == plain == torch.isin: {name}: bit-identical ({int(got.sum())} hits)")
+    launched = sum(1 for _, args, _ in cases if args[0].shape[0] > 0)  # n = 0 launches nothing
+    if sj.LAUNCHES["semijoin"] != launched:
+        fail(f"{sj.LAUNCHES['semijoin']} semijoin launches for {launched} cases with queries")
 
     query = t(ssb_lineorder(SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS, seed=0)["orderkey"])
     keys = t(rng.permutation(SEMIJOIN_KEYS).astype(np.int32))
@@ -533,14 +596,17 @@ def semijoin_phase(dev):
     library = torch.isin(query, keys[keys_mask]) & query_mask
     if not torch.equal(got, want) or not torch.equal(got, library):
         fail("semijoin at SF1: kernel, plain version and torch.isin disagree")
-    ms = cuda_ms(lambda: kops.semijoin(*args, block=512), 3)
+    ms = cuda_ms(lambda: kops.semijoin(*args, block=512), 20)
     with sj.plain_version():
         plain_ms = cuda_ms(lambda: kops.semijoin(*args, block=512), 1)
-    library_ms = cuda_ms(lambda: torch.isin(query, keys[keys_mask]) & query_mask, 10)
+    library_ms = cuda_ms(lambda: torch.isin(query, keys[keys_mask]) & query_mask, 20)
     bound_ms, bound_by, detail = semijoin_bound(*args)
-    log(f"semijoin n={SF1_ROWS} m={SEMIJOIN_KEYS} block=512 ({int(got.sum())} hits): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.isin {library_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {detail})")
+    log(f"semijoin n={SF1_ROWS} m={SEMIJOIN_KEYS} ({int(got.sum())} hits; table "
+        f"{sj.table_slots(SEMIJOIN_KEYS)} slots): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.isin {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {detail})")
+    if not ms <= library_ms:
+        fail(f"semijoin at SF1: the kernel ({ms:.4f} ms) is slower than torch.isin "
+             f"({library_ms:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -565,11 +631,14 @@ def attention_bound(q, k, causal, window):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     detail = f"{flops:.4e} flops, {nbytes} bytes"
     if t_ops >= t_bytes:
-        return t_ops, "operations", detail
-    return t_bytes, "bytes", detail
+        return t_ops, "operations", detail, flops
+    return t_bytes, "bytes", detail, flops
 
 
 def flash_phase(dev):
+    """Both flash kernels against the plain version, then their times at
+    the prefill shape in alternating turns.  Returns the measured record of
+    each kernel, by its ``LAUNCHES`` name."""
     import torch
     import torch.nn.functional as F
 
@@ -588,62 +657,103 @@ def flash_phase(dev):
         return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
                 for h in (hq, hkv, hkv)]
 
+    def uniform(dtype, d):
+        ones = torch.ones((1, 1, 128, d), device=dev, dtype=dtype)
+        return [ones, ones, torch.full_like(ones, 3.0)]
+
     bf16, f32 = torch.bfloat16, torch.float32
     B, S = LM_BATCH, LM_PROMPT
     prefill_case = qkv(bf16, B, 32, 8, S, S, 128)
+    # (name, (q, k, v), causal, window, the kernel the wrapper must choose)
     cases = [
-        ("qwen3-4b prefill B2 Hq32 Hkv8 D128 S2048 bf16 causal", prefill_case, True, None),
+        ("qwen3-4b prefill B2 Hq32 Hkv8 D128 S2048 bf16 causal", prefill_case, True, None, "wgmma"),
         ("(b,s,h,d) views B2 Hq32 Hkv8 D128 S2048 bf16 causal",
-         bshd_views(bf16, B, 32, 8, S, 128), True, None),
-        ("f32 I/O Hq32 Hkv8 D128 S1024 causal", qkv(f32, 1, 32, 8, 1024, 1024, 128), True, None),
-        ("window 1024 at S4096 bf16", qkv(bf16, 1, 8, 2, 4096, 4096, 128), True, 1024),
-        ("non-causal Sq1 Sk1000 f32", qkv(f32, 2, 32, 8, 1, 1000, 128), False, None),
-        ("non-causal Sq77 Sk1000 f32", qkv(f32, 2, 32, 8, 77, 1000, 128), False, None),
-        ("D64 f32 S512 causal", qkv(f32, 2, 4, 4, 512, 512, 64), True, None),
-        ("group 1 (Hq8 Hkv8) bf16 S512", qkv(bf16, 2, 8, 8, 512, 512, 128), True, None),
-        ("group 4 (Hq32 Hkv8) bf16 S512", qkv(bf16, 2, 32, 8, 512, 512, 128), True, None),
-        ("group 8 (Hq8 Hkv1) bf16 S512", qkv(bf16, 2, 8, 1, 512, 512, 128), True, None),
+         bshd_views(bf16, B, 32, 8, S, 128), True, None, "wgmma"),
+        ("group 1 (Hq8 Hkv8) bf16 S512", qkv(bf16, 2, 8, 8, 512, 512, 128), True, None, "wgmma"),
+        ("group 4 (Hq32 Hkv8) bf16 S512", qkv(bf16, 2, 32, 8, 512, 512, 128), True, None, "wgmma"),
+        ("group 8 (Hq8 Hkv1) bf16 S512", qkv(bf16, 2, 8, 1, 512, 512, 128), True, None, "wgmma"),
+        ("D64 bf16 ragged S300 causal", qkv(bf16, 2, 8, 2, 300, 300, 64), True, None, "wgmma"),
+        ("non-causal Sq77 Sk1000 bf16", qkv(bf16, 2, 32, 8, 77, 1000, 128), False, None, "wgmma"),
+        ("window 64 ragged S500 bf16", qkv(bf16, 2, 8, 2, 500, 500, 128), True, 64, "wgmma"),
+        ("window 1024 at S4096 bf16", qkv(bf16, 1, 8, 2, 4096, 4096, 128), True, 1024, "wgmma"),
+        ("(b,s,h,d) views D64 S300 bf16", bshd_views(bf16, 2, 8, 2, 300, 64), True, None, "wgmma"),
+        ("uniform V bf16 D128", uniform(bf16, 128), True, None, "wgmma"),
+        ("f32 I/O Hq32 Hkv8 D128 S1024 causal", qkv(f32, 1, 32, 8, 1024, 1024, 128), True, None,
+         "cuda_core"),
+        ("non-causal Sq1 Sk1000 f32", qkv(f32, 2, 32, 8, 1, 1000, 128), False, None, "cuda_core"),
+        ("non-causal Sq77 Sk1000 f32", qkv(f32, 2, 32, 8, 77, 1000, 128), False, None, "cuda_core"),
+        ("D64 f32 S512 causal", qkv(f32, 2, 4, 4, 512, 512, 64), True, None, "cuda_core"),
+        ("D256 bf16 S130", qkv(bf16, 2, 8, 2, 130, 130, 256), True, None, "cuda_core"),
+        ("uniform V f32 D32", uniform(f32, 32), True, None, "cuda_core"),
     ]
-    ones = torch.ones((1, 1, 128, 32), device=dev)
-    cases.append(("uniform V", [ones, ones, torch.full_like(ones, 3.0)], True, None))
 
-    err = 0.0
+    err = {v: 0.0 for v in fa.KERNEL_NAME}
     fa.reset_launch_counts()
-    for name, (q, k, v), causal, window in cases:
+    for name, (q, k, v), causal, window, variant in cases:
+        if fa.kernel_variant(q.dtype, q.shape[-1]) != variant:
+            fail(f"flash {name}: kernel_variant chose "
+                 f"{fa.kernel_variant(q.dtype, q.shape[-1])}, not {variant}")
+        before = dict(fa.LAUNCHES)
         got = kops.flash_attention(q, k, v, causal=causal, window=window)
+        launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
         with fa.plain_version():
             want = kops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        if launched != {n: int(n == fa.KERNEL_NAME[variant]) for n in fa.LAUNCHES}:
+            fail(f"flash {name}: launches {launched}, not one of the {variant} kernel")
         if got.dtype != q.dtype or got.shape != q.shape:
             fail(f"flash {name}: {got.dtype}{tuple(got.shape)}")
         if not bool(torch.isfinite(got).all()):
             fail(f"flash {name}: non-finite output")
-        e = max_abs_err(got.float(), want.float())
         tol = F32_TOL if q.dtype == f32 else BF16_TOL
-        if name == "uniform V":
+        if name == "uniform V f32 D32":
             tol = dict(atol=0.0, rtol=1e-6)  # the reference test's own
             want = torch.full_like(got, 3.0)
+        e = max_abs_err(got.float(), want.float())
         try:
             torch.testing.assert_close(got.float(), want.float(), **tol)
         except AssertionError as exc:
             fail(f"flash {name}: kernel differs from the plain version: {exc}")
-        err = max(err, e)
-        log(f"flash == plain: {name}: max abs err {e:.3e} (tolerance {tol})")
-    if fa.LAUNCHES["flash_attention"] != len(cases):
-        fail(f"{fa.LAUNCHES['flash_attention']} flash launches for {len(cases)} cases")
+        err[variant] = max(err[variant], e)
+        log(f"flash == plain: {name} ({variant} kernel): max abs err {e:.3e} (tolerance {tol})")
 
     q, k, v = prefill_case
-    ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True), 10)
+    # the prefill shape through the CUDA-core kernel too, as the timing below runs it
+    got = fa.flash_attention_cuda_core(q, k, v, causal=True)
+    with fa.plain_version():
+        want = kops.flash_attention(q, k, v, causal=True)
+    try:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    except AssertionError as exc:
+        fail(f"flash prefill case through the CUDA-core kernel: {exc}")
+    e = max_abs_err(got.float(), want.float())
+    err["cuda_core"] = max(err["cuda_core"], e)
+    log(f"flash == plain: prefill case through the CUDA-core kernel: max abs err {e:.3e}")
+    if fa.LAUNCHES["flash_attention"] != 1 + sum(c[-1] == "cuda_core" for c in cases):
+        fail(f"{fa.LAUNCHES} flash launches for {len(cases) + 1} cases")
+
+    kernels = {"wgmma": fa.flash_attention_wgmma, "cuda_core": fa.flash_attention_cuda_core}
+    turns = []  # (variant, ms): new, old, old, new
+    for variant in ("wgmma", "cuda_core", "cuda_core", "wgmma"):
+        turns.append((variant, cuda_ms(lambda: kernels[variant](q, k, v, causal=True), 10)))
     with fa.plain_version():
         plain_ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True), 3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 10)
-    bound_ms, bound_by, detail = attention_bound(q, k, True, None)
-    log(f"flash_attention B{B} Hq32 Hkv8 D128 S{S} bf16 causal: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {detail}); kernel / bound {ms / bound_ms:.1f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    bound_ms, bound_by, detail, flops = attention_bound(q, k, True, None)
+    ms = {v: sum(t for w, t in turns if w == v) / 2 for v in kernels}
+    log(f"flash_attention B{B} Hq32 Hkv8 D128 S{S} bf16 causal, turns (wgmma, cuda_core, "
+        f"cuda_core, wgmma) {[round(t, 4) for _, t in turns]} ms: wgmma kernel "
+        f"{ms['wgmma']:.4f} ms ({flops / ms['wgmma'] / 1e9:.1f} TFLOP/s), CUDA-core kernel "
+        f"{ms['cuda_core']:.3f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {detail}); wgmma / sdpa "
+        f"{ms['wgmma'] / library_ms:.2f}, wgmma / bound {ms['wgmma'] / bound_ms:.2f}")
+    return {
+        fa.KERNEL_NAME[v]: dict(max_abs_err=err[v], ms=ms[v],
+                                turns_ms=[t for w, t in turns if w == v], plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        for v in kernels
+    }
 
 
 # ------------------------------------------------------------- Daisy helpers
@@ -991,6 +1101,29 @@ def offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s):
 
 
 # ------------------------------------------------------------------ phase 11
+@contextlib.contextmanager
+def captured_attention():
+    """Within this context every ``kops.flash_attention`` call records its
+    (q, k, v, keyword arguments) before it runs: the live inputs of each
+    layer's attention, for holding the kernel against the plain version on
+    exactly those tensors.  It wraps the dispatch ``attend_full`` calls; the
+    model is not changed."""
+    from repro_torch.kernels import ops as kops
+
+    seen = []
+    inner = kops.flash_attention
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v, kw))
+        return inner(q, k, v, **kw)
+
+    kops.flash_attention = record
+    try:
+        yield seen
+    finally:
+        kops.flash_attention = inner
+
+
 def device_profile(fn, reps: int):
     """Kernel time on the card per call of ``fn`` (``torch.profiler``'s CUDA
     activity, summed over kernels) and the five largest kernels by time."""
@@ -1044,11 +1177,15 @@ def lm_phase(dev):
     p32 = cast_params(master, cfg32)
     s = LM_CHECK_PROMPT
     toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, s + 1), generator=gen, device=dev)
+    before = dict(fa.LAUNCHES)
     full, _ = tt.forward(p32, cfg32, {"tokens": toks})
-    _, cache = tt.prefill(p32, cfg32, {"tokens": toks[:, :s]}, s_max=s + 8,
-                          cache_dtype=torch.float32)
+    pre, cache = tt.prefill(p32, cfg32, {"tokens": toks[:, :s]}, s_max=s + 8,
+                            cache_dtype=torch.float32)
     dec, _ = tt.decode_step(p32, cfg32, cache, toks[:, s:s + 1])
     torch.cuda.synchronize()
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    if launched != {"flash_attention": 2 * cfg.n_layers, "flash_attention_wgmma": 0}:
+        fail(f"f32 forward and prefill launched {launched}: not the CUDA-core kernel a layer")
     e = max_abs_err(dec, full[:, -1])
     try:
         torch.testing.assert_close(dec, full[:, -1], **LM_F32_TOL)
@@ -1057,7 +1194,24 @@ def lm_phase(dev):
     log(f"qwen3-4b f32: prefill({s}) + decode == forward({s + 1}) at the last position, "
         f"max abs err {e:.3e} (tolerance {LM_F32_TOL}; logits up to "
         f"{float(full[:, -1].abs().max()):.3f})")
-    del full, cache, dec, p32
+    # the same float32 network with attention through the plain version: the
+    # CUDA-core kernel across all 36 layers, at the reference's tolerance
+    with fa.plain_version():
+        full_plain, _ = tt.forward(p32, cfg32, {"tokens": toks})
+        pre_plain, _ = tt.prefill(p32, cfg32, {"tokens": toks[:, :s]}, s_max=s + 8,
+                                  cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for what, got, want in ((f"prefill({s})", pre, pre_plain),
+                            (f"forward({s + 1}), every position", full, full_plain)):
+        e = max_abs_err(got, want)
+        try:
+            torch.testing.assert_close(got, want, **LM_F32_TOL)
+        except AssertionError as exc:
+            fail(f"f32 {what} through the kernel differs from the plain version: {exc}")
+        log(f"qwen3-4b f32 {what}: through the CUDA-core kernel == through the plain version, "
+            f"max abs err {e:.3e} (tolerance {LM_F32_TOL}; logits up to "
+            f"{float(want.abs().max()):.3f})")
+    del full, pre, cache, dec, full_plain, pre_plain, p32
 
     params = cast_params(master, cfg)  # the bf16 compute copy, once
     del master
@@ -1075,7 +1229,7 @@ def lm_phase(dev):
     logits, cache = tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = read_counts()["flash_attention"]
+    prefill_launches = read_counts()["flash_attention_wgmma"]
     first = logits.clone()
     out = []
     t0 = time.perf_counter()
@@ -1086,10 +1240,10 @@ def lm_phase(dev):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
     counts = read_counts()
-    launches = counts["flash_attention"]
+    launches = counts["flash_attention_wgmma"]
     if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
-        fail(f"prefill launched flash {prefill_launches} times and the run {launches}, "
-             f"not once a layer ({cfg.n_layers})")
+        fail(f"prefill launched the wgmma flash kernel {prefill_launches} times and the run "
+             f"{launches}, not once a layer ({cfg.n_layers})")
     if first.shape != (LM_BATCH, cfg.vocab_size) or first.dtype != torch.float32:
         fail(f"prefill logits {first.dtype}{tuple(first.shape)}")
     if not bool(torch.isfinite(first).all()) or not bool(torch.isfinite(logits).all()):
@@ -1116,6 +1270,37 @@ def lm_phase(dev):
     if not e <= LM_PLAIN_REL_TOL * scale:
         fail(f"prefill logits through the kernel differ from the plain version by {e}")
     del want
+
+    # layer by layer: each layer's live (q, k, v), captured in one more
+    # prefill (not the timed one), through the kernel and the plain version
+    with captured_attention() as seen:
+        tt.prefill(params, cfg, {"tokens": prompt}, s_max=s_max)
+    if len(seen) != cfg.n_layers:
+        fail(f"captured {len(seen)} attention calls in a prefill of {cfg.n_layers} layers")
+    worst, worst_layer = -1.0, -1
+    for layer, (q, k, v, kw) in enumerate(seen):
+        got = fa.flash_attention(q, k, v, **kw)
+        with fa.plain_version():
+            want = fa.flash_attention(q, k, v, **kw)
+        try:
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        except AssertionError as exc:
+            # the worst element beside the plain version's float32 value
+            # before its cast to bf16
+            with fa.plain_version():
+                exact = fa.flash_attention(q.float(), k.float(), v.float(), **kw)
+            at = tuple(int(i) for i in torch.unravel_index(
+                (got.float() - want.float()).abs().argmax(), got.shape))
+            fail(f"prefill layer {layer}: the kernel differs from the plain version on the "
+                 f"layer's live (q, k, v): {exc}\nat {at}: kernel {float(got[at])}, plain "
+                 f"{float(want[at])}, plain in float32 {float(exact[at])}")
+        e = max_abs_err(got.float(), want.float())
+        if e > worst:
+            worst, worst_layer = e, layer
+    log(f"prefill layer by layer: {len(seen)} layers' live (q, k, v) {tuple(seen[0][0].shape)} "
+        f"through the wgmma kernel == the plain version, largest max abs err {worst:.3e} "
+        f"(layer {worst_layer}; tolerance {BF16_TOL})")
+    del seen, got, want
 
     # where the device time goes, against the host-clock times above
     def report(what, wall_ms, fn, reps):
@@ -1213,7 +1398,7 @@ def main() -> int:
 
     # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    names = ("dc_pairs", "flash_attention", "semijoin")
+    names = ("dc_pairs", "flash_attention", "flash_attention_wgmma", "semijoin")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(lambda n: build.build_library(n, verbose_ptxas=True), names))
     log(f"built {[os.path.relpath(p, HERE) for p in libs]} in "
@@ -1251,11 +1436,12 @@ def main() -> int:
             if (n <= 0) if want is None else (n != want):
                 fail(f"the {path} path launched {kernel} {n} times, expected "
                      f"{'at least one' if want is None else want}")
-    measured = {"dc_pair_scan": dc_measured, "flash_attention": flash_measured,
+    measured = {"dc_pair_scan": dc_measured, **flash_measured,
                 "dc_role_scan": role_measured, "semijoin": semijoin_measured}
     where = {
         "dc_pair_scan": ("dc_pairs.cu", "dc_pairs.py:445"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:101"),
+        "flash_attention_wgmma": ("flash_attention_wgmma.cu", "flash_attention.py:101"),
         "dc_role_scan": ("dc_pairs.cu", "dc_pairs.py:238"),
         "semijoin": ("semijoin.cu", "semijoin.py:32"),
     }

@@ -1,9 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel).  q is (B, Hq, Sq, D), k and v are (B, Hkv, Sk, D), each given by
-// its base pointer and its batch, head and sequence strides in elements (the
-// head dim is contiguous), so the caller's (B, S, H, D) projections are read
+// _kernel) for float32 operands and for head dims other than 64 and 128;
+// bf16 at those widths takes the tensor-core kernel in
+// flash_attention_wgmma.cu (kernels/flash_attention.py::kernel_variant).
+// q is (B, Hq, Sq, D), k and v are (B, Hkv, Sk, D), each given by its base
+// pointer and its batch, head and sequence strides in elements (the head
+// dim is contiguous), so the caller's (B, S, H, D) projections are read
 // and written where they lie, with no transposed copy.  Query head h reads kv
 // head h / (Hq / Hkv) (GQA, no repeat in memory).  What it computes is the TPU
 // kernel's: operands upcast to float32; scores scaled; masked scores set to
@@ -15,9 +18,10 @@
 // What bounds it on this card: at prefill shapes, operations.  Attention does
 // 4 * Sq * Sk * D flops (halved by the causal mask) per head on 2 * (Sq + Sk)
 // * D values, hundreds of flops a byte, so its bound is the tensor cores'
-// bf16 rate.  This first design is the simple one: every product is a scalar
-// float32 FMA on the CUDA cores, so it sits far above that bound; wgmma on
-// bf16 tiles with TMA loads is later work.  What the design does:
+// bf16 rate.  This design is the simple one: every product is a scalar
+// float32 FMA on the CUDA cores, so it sits far above that bound (for bf16
+// at widths 64 and 128 the wgmma kernel does the products on the tensor
+// cores).  What the design does:
 //   * one thread block of 128 threads per (batch * q head, tile of BQ query
 //     rows), the tiles with the most causal work launched first;
 //   * the kv loop runs only over the tiles the causal and window limits leave
@@ -34,7 +38,9 @@
 // Shared-memory rows of Q and K are padded by 4 floats so that the 8 threads
 // of a quarter warp read 8 different rows from 8 different bank groups.
 // Head dims up to 256 (a multiple of 8) are taken, in three compiled widths
-// (64, 128, 256); a narrower D is zero-padded in shared memory.  expf, not
+// (64, 128, 256); a narrower D is zero-padded in shared memory.  A block
+// takes 64 query rows at widths 64 and 128 (32 for float32 at 128) and 32
+// at 256.  expf, not
 // __expf.
 
 #include <cuda_bf16.h>
@@ -155,7 +161,6 @@ __global__ void __launch_bounds__(NT) fa_kernel(const FaArgs a) {
   const T* qp = static_cast<const T*>(a.q) + bi * a.q_stride[0] + h * a.q_stride[1];
   const T* kp = static_cast<const T*>(a.k) + bi * a.k_stride[0] + hk * a.k_stride[1];
   const T* vp = static_cast<const T*>(a.v) + bi * a.v_stride[0] + hk * a.v_stride[1];
-  T* op = static_cast<T*>(a.o) + bi * a.o_stride[0] + h * a.o_stride[1];
 
   stage<T, DMAX>(sQ, DP, qp, a.q_stride[2], q0, BQ, a.sq, a.d);
 
@@ -276,6 +281,10 @@ __global__ void __launch_bounds__(NT) fa_kernel(const FaArgs a) {
     }
   }
 
+  // the output's address is formed here, not held across the kv loop (held,
+  // it spilled at float32 width 128)
+  T* op = static_cast<T*>(a.o) + (int64_t)(blockIdx.y / a.hq) * a.o_stride[0] +
+          (int64_t)(blockIdx.y % a.hq) * a.o_stride[1];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + rg * RQ + i;
@@ -306,7 +315,16 @@ cudaError_t launch(const FaArgs& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_width(const FaArgs& a, cudaStream_t stream) {
   if (a.d <= 64) return launch<T, 64, 64>(a, stream);
-  if (a.d <= 128) return launch<T, 128, 64>(a, stream);
+  if (a.d <= 128) {
+    // float32 at width 128 takes 32 rows a block, half the rows and acc
+    // registers a thread holds: with 64 it compiled to 168 registers and
+    // spilled 20 bytes (ptxas)
+    if constexpr (sizeof(T) == 4) {
+      return launch<T, 128, 32>(a, stream);
+    } else {
+      return launch<T, 128, 64>(a, stream);
+    }
+  }
   return launch<T, 256, 32>(a, stream);
 }
 

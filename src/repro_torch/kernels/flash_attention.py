@@ -1,5 +1,5 @@
-"""Flash-attention forward: the CUDA kernel, its wrapper, and its plain
-PyTorch versions.
+"""Flash-attention forward: the two CUDA kernels, their wrapper, and the
+plain PyTorch versions.
 
 Forward attention with an online softmax: q (B, Hq, Sq, D), k and v
 (B, Hkv, Sk, D), Hq a multiple of Hkv (GQA maps query head h to kv head
@@ -8,28 +8,42 @@ position) and sliding window (key position > query position - window).
 Scores are scaled by ``1/sqrt(D)`` unless ``scale`` is given; rows that see
 no key give 0.  The output has q's dtype.
 
-Three pieces live here, beside each other:
+The pieces, beside each other:
 
 * ``flash_attention`` — the wrapper.  On CPU tensors it runs a plain
   version, routed as the reference's ``ops.flash_attention`` routes its
   ``ref`` mode: ``attention_blocked`` when ``sq >= 1024 and sq % 512 == 0
   and sk % 1024 == 0``, ``attention`` otherwise.  On CUDA tensors it
-  launches ``csrc/flash_attention.cu`` and counts the launch in
-  ``LAUNCHES``; a failed build or launch raises.  There is no fallback from
-  the card to the plain version; ``plain_version()`` forces it explicitly,
-  for comparisons on the card.
+  launches one of two hand-written kernels, as ``kernel_variant`` chooses
+  by dtype and head dim, and counts the launch under that kernel's name in
+  ``LAUNCHES``:
+
+  - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 with head dim 64
+    or 128, both products on the tensor cores (``wgmma``), K and V tiles
+    by TMA into a shared-memory ring.  It reads its operands through TMA
+    tensor maps and raises on a layout TMA cannot take (``tma_strides``)
+    rather than copying;
+  - ``"cuda_core"`` (``csrc/flash_attention.cu``): float32, or any head
+    dim up to 256 (a multiple of 8), every product a float32 FMA on the
+    CUDA cores.  It copies an operand once where its rows are not 16-byte
+    aligned (``_kernel_operand``).
+
+  Each kernel is also callable alone (``flash_attention_wgmma``,
+  ``flash_attention_cuda_core``), for timing the two on one input.  A
+  failed build or launch raises.  There is no fallback from the card to
+  the plain version; ``plain_version()`` forces it explicitly, for
+  comparisons on the card.
 * ``attention`` — the oracle: softmax over the whole masked score matrix,
   ``-inf`` logits and the ``row_visible`` guard for rows with no key.
 * ``attention_blocked`` — the same online-softmax tiling as the TPU kernel
   over (512, 1024) tiles, ``-1e30`` for masked scores and
   ``acc / max(l, 1e-30)``.
 
-Both plain versions compute in float32 and cast back.  The kernel replaces
-``repro/kernels/flash_attention.py::flash_attention_pallas`` (line 101).
-At prefill shapes it is bound by the tensor cores' bf16 FLOPs; this first
-design runs every product as scalar float32 FMAs on the CUDA cores, so it
-sits far above that bound (PERF.md).  The library is built with ``nvcc`` at
-first use (``kernels.build``) and loaded with ``ctypes``.
+Both plain versions compute in float32 and cast back.  Both kernels
+replace ``repro/kernels/flash_attention.py::flash_attention_pallas`` (line
+101); at prefill shapes the work is bound by the tensor cores' bf16 FLOPs
+(PERF.md).  The libraries are built with ``nvcc`` at first use
+(``kernels.build``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -46,9 +60,13 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the tensor-core kernel is compiled for
+WGMMA_HEAD_DIMS = (64, 128)
+# the kernel each kernel_variant launches, as LAUNCHES names it
+KERNEL_NAME = {"wgmma": "flash_attention_wgmma", "cuda_core": "flash_attention"}
 
-# launches of the CUDA kernel, counted by the wrapper at each launch
-LAUNCHES = {"flash_attention": 0}
+# launches of each CUDA kernel, counted by the wrapper at each launch
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 _state = threading.local()
 
@@ -148,7 +166,38 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=None) -> torc
     return attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
-# ------------------------------------------------------------------ kernel
+# ----------------------------------------------------------------- kernels
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores) for bf16
+    with head dim 64 or 128, ``"cuda_core"`` for everything else."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def tma_strides(x: torch.Tensor, name: str) -> list:
+    """(batch, head, seq) strides, in elements, of a (B, H, S, D) operand
+    as a TMA tensor map takes it: the head dim contiguous, the base and
+    every other stride a multiple of 16 bytes.  A dim of size 1 is never
+    stepped, so its stride is given as the packed one.  Raises
+    ``ValueError`` on any other layout (the wgmma kernel copies nothing)."""
+    per16 = 16 // x.element_size()
+    strides = []
+    packed = x.shape[-1]
+    for dim in (2, 1, 0):
+        st = x.stride(dim) if x.shape[dim] > 1 else packed
+        strides.insert(0, st)
+        packed *= x.shape[dim]
+    if x.stride(-1) != 1 and x.shape[-1] > 1:
+        raise ValueError(f"flash_attention wgmma kernel: {name}'s head dim is not contiguous "
+                         f"(strides {tuple(x.stride())})")
+    if x.data_ptr() % 16 or any(st % per16 or st <= 0 for st in strides):
+        raise ValueError(f"flash_attention wgmma kernel: {name} (strides {tuple(x.stride())}, "
+                         f"base {x.data_ptr() % 16} bytes past 16) is not a layout TMA takes: "
+                         "the base and each stride must be multiples of 16 bytes")
+    return strides
+
+
 class _FaArgs(ctypes.Structure):
     """Mirror of ``FaArgs`` in ``csrc/flash_attention.cu``."""
 
@@ -205,43 +254,124 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _flash_attention_cuda(q, k, v, causal, window, scale) -> torch.Tensor:
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] == 0 or hq % k.shape[1]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)}")
+
+
+def _check_kernel_operands(q, k, v, window, kernel: str) -> None:
+    """What both kernels need of their operands and arguments."""
+    _check_shapes(q, k, v)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} is {x.dtype} on {x.device}, "
+            raise ValueError(f"{kernel}: {name} is {x.dtype} on {x.device}, "
                              f"q is {q.dtype} on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim a multiple of 8 up "
-                         f"to {MAX_HEAD_DIM}, got {d}")
-    if b * hq > 65535 or max(sq, sk) >= 2**31:
-        raise ValueError(f"flash_attention kernel: shape {tuple(q.shape)} too large")
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel}: operands on {q.device}, not on a CUDA device")
+    b, hq, sq, _ = q.shape
+    if b * hq > 65535 or max(sq, k.shape[2]) >= 2**31:
+        raise ValueError(f"{kernel}: shape {tuple(q.shape)} too large")
     if window is not None and not -2**31 < window < 2**31:
-        raise ValueError(f"flash_attention kernel: window {window} outside int32")
+        raise ValueError(f"{kernel}: window {window} outside int32")
+
+
+def _launch_args(struct, operands, q, k, causal, window, scale):
+    """Fill ``struct`` (a ctypes mirror): each operand's pointer and
+    (batch, head, seq) strides, the shape, the mask and the scale."""
+    args = struct()
+    for field, (x, strides) in operands.items():
+        setattr(args, field, x.data_ptr())
+        getattr(args, f"{field}_stride")[:] = strides
+    (args.b, args.hq, args.sq, args.d), args.hkv, args.sk = q.shape, k.shape[1], k.shape[2]
+    args.causal = int(bool(causal))
+    args.has_window = int(window is not None)
+    args.window = int(window) if window is not None else 0
+    args.scale = scale
+    return args
+
+
+def flash_attention_cuda_core(q, k, v, causal=True, window=None, scale=None) -> torch.Tensor:
+    """The CUDA-core kernel (``csrc/flash_attention.cu``) on CUDA tensors:
+    float32 or bfloat16, head dim a multiple of 8 up to 256.  One counted
+    launch under ``"flash_attention"``."""
+    kernel = "flash_attention CUDA-core kernel"
+    _check_kernel_operands(q, k, v, window, kernel)
+    b, hq, sq, d = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{kernel} takes float32 or bfloat16, got {q.dtype}")
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{kernel} takes head_dim a multiple of 8 up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
     # the output is written in (B, Sq, Hq, D) layout, the layout attend_full
     # projects from; the returned tensor is its (B, Hq, Sq, D) view
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
-    args = _FaArgs()
-    for field, x in (("q", q), ("k", k), ("v", v), ("o", out)):
-        setattr(args, field, x.data_ptr())
-        getattr(args, f"{field}_stride")[:] = list(x.stride()[:3])
-    args.b, args.hq, args.hkv, args.sq, args.sk, args.d = b, hq, hkv, sq, sk, d
-    args.causal = int(bool(causal))
-    args.has_window = int(window is not None)
-    args.window = int(window) if window is not None else 0
+    operands = {f: (x, list(x.stride()[:3]))
+                for f, x in (("q", q), ("k", k), ("v", v), ("o", out))}
+    args = _launch_args(_FaArgs, operands, q, k, causal, window, scale)
     args.dtype = _DTYPE_CODE[q.dtype]
-    args.scale = scale
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().flash_attention_launch(ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+class _FaWgArgs(ctypes.Structure):
+    """Mirror of ``FaWgArgs`` in ``csrc/flash_attention_wgmma.cu``."""
+
+    _fields_ = _FaArgs._fields_[:-2] + [("scale", ctypes.c_float)]
+
+
+_wg_lib = None
+
+
+def _wgmma_library():
+    global _wg_lib
+    with _lib_lock:
+        if _wg_lib is None:
+            lib = ctypes.CDLL(str(build.build_library("flash_attention_wgmma")))
+            lib.fa_wgmma_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.fa_wgmma_launch.restype = ctypes.c_int
+            lib.fa_wgmma_args_size.restype = ctypes.c_int
+            if lib.fa_wgmma_args_size() != ctypes.sizeof(_FaWgArgs):
+                raise RuntimeError(
+                    "csrc/flash_attention_wgmma.cu and its ctypes mirror disagree")
+            _wg_lib = lib
+        return _wg_lib
+
+
+def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None) -> torch.Tensor:
+    """The tensor-core kernel (``csrc/flash_attention_wgmma.cu``) on CUDA
+    tensors: bfloat16 with head dim 64 or 128, in a layout TMA takes
+    (``tma_strides``).  One counted launch under ``"flash_attention_wgmma"``."""
+    kernel = "flash_attention wgmma kernel"
+    _check_kernel_operands(q, k, v, window, kernel)
+    b, hq, sq, d = q.shape
+    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"{kernel} takes bfloat16 with head dim in {WGMMA_HEAD_DIMS}, "
+                         f"got {q.dtype} and {d}")
+    operands = {f: (x, tma_strides(x, f)) for f, x in (("q", q), ("k", k), ("v", v))}
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    operands["o"] = (out, list(out.stride()[:3]))
+    args = _launch_args(_FaWgArgs, operands, q, k, causal, window, scale)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _wgmma_library().fa_wgmma_launch(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: error {err}")
+    LAUNCHES["flash_attention_wgmma"] += 1
     return out
 
 
@@ -255,17 +385,13 @@ def flash_attention(
 ) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D).  Returns (B, Hq, Sq, D) in
     q's dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or the plain version inside ``plain_version()``)."""
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    b, hq, _, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or k.shape[1] == 0 or hq % k.shape[1]:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
-                         f"k/v {tuple(k.shape)}")
+    kernel ``kernel_variant`` chooses (or the plain version inside
+    ``plain_version()``)."""
+    _check_shapes(q, k, v)
     if q.device.type == "cpu" or getattr(_state, "plain", False):
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    return _flash_attention_cuda(q, k, v, causal, window, scale)
+    kernel = (flash_attention_wgmma if kernel_variant(q.dtype, q.shape[-1]) == "wgmma"
+              else flash_attention_cuda_core)
+    return kernel(q, k, v, causal=causal, window=window, scale=scale)

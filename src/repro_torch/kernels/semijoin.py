@@ -1,5 +1,5 @@
-"""Blocked semijoin membership: the CUDA kernel, its wrapper, and its plain
-PyTorch version.
+"""Semijoin membership: the CUDA kernel (a hash build and probe), its
+wrapper, and its plain PyTorch version.
 
 For each query key ``query[i]`` (one dictionary-coded column): does any
 masked-in key ``keys[j]`` equal it?  The result is ANDed with
@@ -7,7 +7,9 @@ masked-in key ``keys[j]`` equal it?  The result is ANDed with
 
 * ``semijoin`` — the wrapper.  On CPU tensors it runs the plain version; on
   CUDA tensors it launches ``csrc/semijoin.cu`` (it replaces the TPU kernel
-  ``repro/kernels/semijoin.py::semijoin_pallas``) and counts the launch in
+  ``repro/kernels/semijoin.py::semijoin_pallas``): a table of
+  ``table_slots(m)`` 64-bit slots, cleared, built from the live keys and
+  probed by every query on the caller's stream, one counted launch in
   ``LAUNCHES``.  There is no fallback from the card to the plain version;
   ``plain_version()`` forces it explicitly for comparisons.
 * ``semijoin_plain`` — the reference oracle's blocked loop over key blocks
@@ -34,6 +36,9 @@ LAUNCHES = {"semijoin": 0}
 
 # queries compared at once by the plain version (x ``block`` bools each)
 PLAIN_QUERY_CHUNK = 1 << 20
+# the kernel's hash table: at least this many slots, and at most 2**30
+MIN_TABLE_SLOTS = 1024
+MAX_TABLE_SLOTS = 1 << 30
 
 _state = threading.local()
 
@@ -69,6 +74,15 @@ def semijoin_plain(query, query_mask, keys, keys_mask, block: int = 512) -> torc
     return found & query_mask
 
 
+def table_slots(m: int) -> int:
+    """Slots of the kernel's open-addressing table for ``m`` keys: the
+    least power of two at least ``2 m`` (so the table is at most half full
+    and a probe run stays short), and at least ``MIN_TABLE_SLOTS``."""
+    if m < 0:
+        raise ValueError(f"table_slots: {m} keys")
+    return max(MIN_TABLE_SLOTS, 1 << (2 * m - 1).bit_length()) if m else MIN_TABLE_SLOTS
+
+
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -78,7 +92,7 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build.build_library("semijoin")))
-            lib.semijoin_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            lib.semijoin_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
                 ctypes.c_void_p
             ]
             lib.semijoin_launch.restype = ctypes.c_int
@@ -87,6 +101,9 @@ def _library():
 
 
 def _semijoin_cuda(query, query_mask, keys, keys_mask, block: int) -> torch.Tensor:
+    """Build a hash table of the live keys and probe it with every query:
+    one counted launch.  ``block`` (the plain version's key block) plays no
+    part in the kernel and is only checked."""
     dev = query.device
     for name, x in (("query", query), ("keys", keys)):
         if x.dtype != torch.int32 or x.dim() != 1 or x.device != dev:
@@ -95,15 +112,22 @@ def _semijoin_cuda(query, query_mask, keys, keys_mask, block: int) -> torch.Tens
     for name, x, like in (("query_mask", query_mask, query), ("keys_mask", keys_mask, keys)):
         if x.dtype != torch.bool or x.shape != like.shape or x.device != dev:
             raise ValueError(f"semijoin kernel takes a bool {name} shaped like its keys")
-    if not 1 <= block <= 1024:
-        raise ValueError(f"block {block} outside the kernel's [1, 1024]")
+    if block < 1:
+        raise ValueError(f"block {block} < 1")
+    slots = table_slots(keys.shape[0])
+    if slots > MAX_TABLE_SLOTS or query.shape[0] >= 2**31:
+        raise ValueError(f"semijoin kernel: {query.shape[0]} queries, {keys.shape[0]} keys "
+                         "is more than it takes")
     query, query_mask = query.contiguous(), query_mask.contiguous()
     keys, keys_mask = keys.contiguous(), keys_mask.contiguous()
     out = torch.empty_like(query_mask)
+    if out.numel() == 0:
+        return out  # no query: nothing to launch
+    table = torch.empty((slots,), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().semijoin_launch(
         query.data_ptr(), query_mask.data_ptr(), keys.data_ptr(), keys_mask.data_ptr(),
-        out.data_ptr(), query.shape[0], keys.shape[0], block, stream,
+        out.data_ptr(), table.data_ptr(), query.shape[0], keys.shape[0], slots, stream,
     )
     if err != 0:
         raise RuntimeError(f"semijoin kernel launch failed: CUDA error {err}")

@@ -1,10 +1,12 @@
 """The port on the card: the CUDA ``dc_pair_scan``, ``dc_role_scan``,
-``semijoin`` and ``flash_attention`` kernels against their plain PyTorch
-versions, the whole ``Daisy`` (SP and join queries) and the offline cleaner
-on the card against the same engines on the CPU, and the LM's prefill
-through the flash kernel against the same prefill through the plain
-version.  Every
-test is marked ``gpu`` and skips without a CUDA device.  The file imports no JAX, so it runs where JAX is not installed:
+``semijoin`` (a hash build and probe) and the two flash-attention kernels
+(the tensor-core ``wgmma`` one for bf16 at head dims 64 and 128, the
+CUDA-core one for the rest) against their plain PyTorch versions, the
+whole ``Daisy`` (SP and join queries) and the offline cleaner on the card
+against the same engines on the CPU, and the LM's prefill through the
+flash kernel against the same prefill through the plain version.  Every
+test is marked ``gpu`` and skips without a CUDA device.  The file imports
+no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
@@ -171,6 +173,51 @@ def test_semijoin_kernel_matches_plain_version(card, n, m, block):
         assert torch.equal(got, torch.isin(q, k[km]) & qm)
 
 
+def _semijoin_edge(name, card):
+    rng = np.random.default_rng(7)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    if name == "int32 extremes":
+        k = np.array([lo, hi, -1, 0], np.int32)
+        q = np.concatenate([k, k + np.array([1, -1, -1, 1], np.int32),
+                            rng.integers(lo, hi, 500, dtype=np.int64).astype(np.int32)])
+        km = np.ones(4, bool)
+    elif name == "duplicates, mixed masks":
+        k = np.repeat(rng.integers(0, 300, 200).astype(np.int32), 10)
+        km = np.ones(k.shape[0], bool)
+        km[::10] = False  # one copy of each value out, its twins in
+        km[k < 30] = False  # and some values out in every copy
+        q = rng.integers(0, 350, 5000).astype(np.int32)
+    elif name == "multiples of the table size":
+        slots = sj.table_slots(400)
+        k = (np.arange(-200, 200) * slots).astype(np.int32)
+        q = (rng.integers(-300, 300, 5000) * slots).astype(np.int32)
+        km = np.ones(400, bool)
+    elif name in ("m=0", "every key masked out"):
+        q = rng.integers(0, 50, 300).astype(np.int32)
+        k = np.zeros(0 if name == "m=0" else 40, np.int32)
+        km = np.zeros(k.shape[0], bool)
+    else:  # n=0
+        q, k, km = np.zeros(0, np.int32), np.arange(10, dtype=np.int32), np.ones(10, bool)
+    qm = rng.random(q.shape[0]) < 0.9
+    return [torch.from_numpy(a).to(card) for a in (q, qm, k, km)]
+
+
+@pytest.mark.parametrize("name", ["int32 extremes", "duplicates, mixed masks",
+                                  "multiples of the table size", "m=0", "every key masked out",
+                                  "n=0"])
+def test_semijoin_kernel_edge_cases(card, name):
+    """The hash kernel == the plain version == torch.isin, bit for bit; a
+    call with no query launches nothing."""
+    q, qm, k, km = _semijoin_edge(name, card)
+    before = sj.LAUNCHES["semijoin"]
+    got = tops.semijoin(q, qm, k, km)
+    assert sj.LAUNCHES["semijoin"] == before + (q.shape[0] > 0)
+    with sj.plain_version():
+        want = tops.semijoin(q, qm, k, km)
+    assert got.dtype == torch.bool and got.shape == q.shape and torch.equal(got, want)
+    assert torch.equal(got, torch.isin(q, k[km]) & qm)
+
+
 def test_semijoin_kernel_raises_on_other_dtypes(card):
     x = torch.zeros(8, dtype=torch.int64, device=card)
     m = torch.ones(8, dtype=torch.bool, device=card)
@@ -260,15 +307,60 @@ def _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=0):
 ])
 def test_flash_kernel_matches_plain_version(card, dtype, hq, hkv, sq, sk, d, causal, window):
     q, k, v = _qkv(card, dtype, 2, hq, hkv, sq, sk, d)
-    before = fa.LAUNCHES["flash_attention"]
+    kernel = fa.KERNEL_NAME[fa.kernel_variant(dtype, d)]
+    before = dict(fa.LAUNCHES)
     got = tops.flash_attention(q, k, v, causal=causal, window=window)
-    assert fa.LAUNCHES["flash_attention"] == before + 1
     with fa.plain_version():
         want = tops.flash_attention(q, k, v, causal=causal, window=window)
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES == {n: before[n] + (n == kernel) for n in before}
     assert got.dtype == dtype and got.shape == q.shape
     tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=3e-2, rtol=0)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,causal,window", [
+    (8, 8, 512, 512, 128, True, None),      # GQA group 1
+    (32, 8, 512, 512, 128, True, None),     # group 4, qwen3-4b's heads
+    (8, 1, 512, 512, 128, True, None),      # group 8
+    (8, 2, 300, 300, 64, True, None),       # D 64, ragged S
+    (32, 8, 77, 1000, 128, False, None),    # non-causal Sq != Sk
+    (8, 2, 500, 500, 128, True, 64),        # window, ragged S
+    (8, 2, 4096, 4096, 128, True, 1024),    # window 1024 at S 4096
+    (4, 2, 1, 300, 64, False, None),        # one query row
+])
+def test_wgmma_kernel_matches_plain_version(card, hq, hkv, sq, sk, d, causal, window):
+    """bf16 at head dim 64 and 128: the tensor-core kernel, one launch of it
+    and none of the CUDA-core kernel, at the reference's bf16 tolerance."""
+    q, k, v = _qkv(card, torch.bfloat16, 1 if sq == 4096 else 2, hq, hkv, sq, sk, d, seed=3)
+    before = dict(fa.LAUNCHES)
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == {"flash_attention": before["flash_attention"],
+                           "flash_attention_wgmma": before["flash_attention_wgmma"] + 1}
+    with fa.plain_version():
+        want = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+def test_each_flash_variant_counts_its_own_launches(card):
+    """One bf16 input through both kernels: each counts under its name."""
+    q, k, v = _qkv(card, torch.bfloat16, 1, 4, 2, 256, 256, 128)
+    before = dict(fa.LAUNCHES)
+    a = tops.flash_attention(q, k, v)
+    b = fa.flash_attention_cuda_core(q, k, v)
+    assert fa.LAUNCHES == {n: before[n] + 1 for n in before}
+    torch.testing.assert_close(a.float(), b.float(), atol=3e-2, rtol=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_wgmma(q.float(), k.float(), v.float())
+
+
+def test_wgmma_kernel_refuses_layouts_tma_cannot_take(card):
+    q, k, v = _qkv(card, torch.bfloat16, 1, 2, 1, 64, 64, 64)
+    padded = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=card)[..., :64]
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="TMA"):
+        tops.flash_attention(padded, k, v)
+    assert fa.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -291,6 +383,10 @@ def test_flash_kernel_uniform_v(card):
     v = torch.full((1, 1, 128, 32), 3.0, device=card)
     got = tops.flash_attention(q, q, v, causal=True)
     torch.testing.assert_close(got, torch.full_like(got, 3.0), atol=0, rtol=1e-6)
+    # bf16 at head dim 128, the tensor-core kernel: 3.0 is exact in bf16
+    qb = torch.ones((1, 1, 128, 128), device=card, dtype=torch.bfloat16)
+    got = tops.flash_attention(qb, qb, torch.full_like(qb, 3.0), causal=True)
+    torch.testing.assert_close(got.float(), torch.full_like(got.float(), 3.0), atol=3e-2, rtol=0)
 
 
 def test_flash_kernel_raises_on_what_it_does_not_take(card):

@@ -4,8 +4,10 @@ as ``tests/test_kernels.py`` runs it, and against the reference's jnp
 oracles where the Pallas kernel needs block multiples.
 
 Tolerances are the reference tests' own: float32 ``atol=rtol=2e-5``, bf16
-``atol=3e-2``.  The CUDA kernel itself is held against the plain version by
-``tests/test_torch_cuda.py`` (marked ``gpu``) and by ``chip_smoke.py``."""
+``atol=3e-2``.  The two CUDA kernels themselves are held against the plain
+version by ``tests/test_torch_cuda.py`` (marked ``gpu``) and by
+``chip_smoke.py``; which of them a call takes (``kernel_variant``) and the
+layouts the tensor-core kernel refuses (``tma_strides``) are tested here."""
 
 import gc
 import jax
@@ -43,10 +45,10 @@ def qkv(seed, b, hq, hkv, sq, sk, d, dtype=np.float32):
 
 def port(q, k, v, **kw):
     """The port's dispatch on CPU tensors; it must launch nothing."""
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
     out = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v), **kw)
-    assert fa.LAUNCHES["flash_attention"] == before
+    assert fa.LAUNCHES == before
     return out
 
 
@@ -171,5 +173,44 @@ def test_bad_shapes_raise():
 
 def test_launch_counter_starts_at_zero_after_reset():
     fa.LAUNCHES["flash_attention"] = 5
+    fa.LAUNCHES["flash_attention_wgmma"] = 3
     fa.reset_launch_counts()
-    assert fa.LAUNCHES == {"flash_attention": 0}
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+def test_kernel_variant_by_dtype_and_head_dim(dtype, d):
+    """bf16 at head dim 64 or 128 takes the tensor-core kernel; everything
+    else the CUDA-core kernel (which raises on float16 itself)."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
+    assert fa.kernel_variant(dtype, d) == want
+    assert fa.KERNEL_NAME[want] in fa.LAUNCHES
+
+
+def test_kernels_refuse_cpu_tensors():
+    """Each kernel function launches only on CUDA tensors: called alone on
+    CPU tensors it raises, where the dispatch would run the plain version."""
+    q, k, v = (torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16) for _ in range(3))
+    for kernel in (fa.flash_attention_wgmma, fa.flash_attention_cuda_core):
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel(q, k, v)
+
+
+def test_tma_layout_is_checked_not_copied():
+    """The wgmma kernel's operands: (b, h, s, d) views of (b, s, h, d)
+    tensors pass with their own strides; a row stride or a base that is
+    not a multiple of 16 bytes is refused, not copied."""
+    x = torch.zeros((2, 300, 8, 128), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.tma_strides(x, "q") == [300 * 8 * 128, 128, 8 * 128]
+    one = torch.zeros((1, 1, 5, 64), dtype=torch.bfloat16)  # size-1 dims: packed strides
+    assert fa.tma_strides(one, "k") == [5 * 64, 5 * 64, 64]
+    ragged_rows = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="TMA"):
+        fa.tma_strides(ragged_rows, "q")
+    flat = torch.zeros(2 * 16 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 16, 64)  # base 2 bytes past an aligned one
+    with pytest.raises(ValueError, match="TMA"):
+        fa.tma_strides(shifted, "v")
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.tma_strides(torch.zeros((1, 2, 64, 16), dtype=torch.bfloat16).transpose(2, 3), "k")

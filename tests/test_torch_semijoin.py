@@ -9,8 +9,10 @@ pattern, so NaN propagation and the sign of a zero extremum are pinned).
 The role scan is held against the interpret-mode kernel on NaN-free inputs
 only: the TPU kernel's tile pruning skips tiles with a NaN bound, which its
 own oracle does not (ROADMAP Queue 3); the port follows the oracle.  The
-CUDA kernels themselves are held against the plain versions by
-``tests/test_torch_cuda.py`` (marked ``gpu``) and by ``chip_smoke.py``."""
+CUDA kernels themselves (the semijoin's is a hash build and probe, whose
+table size ``table_slots`` is tested here) are held against the plain
+versions by ``tests/test_torch_cuda.py`` (marked ``gpu``) and by
+``chip_smoke.py``."""
 
 import gc
 
@@ -122,6 +124,50 @@ def test_semijoin_plain_chunks_queries(monkeypatch):
     monkeypatch.setattr(tsj, "PLAIN_QUERY_CHUNK", 7)
     chunked = tsj.semijoin_plain(*map(torch.from_numpy, (q, qm, k, km)), 256)
     assert torch.equal(whole, chunked)
+
+
+def _edge_case(name):
+    """Tiny inputs of the kernel's edge cases: int32 extremes as keys,
+    duplicates with mixed masks, no keys, no queries."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    if name == "int32 extremes":
+        k = np.array([lo, hi, -1, 0, 7], np.int32)
+        q = np.array([lo, lo + 1, hi, hi - 1, -1, -2, 0, 1, 7, lo], np.int32)
+        return q, np.ones(10, bool), k, np.array([1, 1, 1, 1, 0], bool)
+    if name == "duplicates, mixed masks":
+        # 3 appears in and out, 5 only out, 9 only in
+        k = np.array([3, 3, 5, 9, 3, 5, 9, -1], np.int32)
+        km = np.array([0, 1, 0, 1, 0, 0, 1, 0], bool)
+        q = np.array([3, 5, 9, -1, 4, 3, 9], np.int32)
+        return q, np.array([1, 1, 1, 1, 1, 0, 1], bool), k, km
+    if name == "m=0":
+        return np.array([0, 1, -1], np.int32), np.ones(3, bool), np.zeros(0, np.int32), \
+            np.zeros(0, bool)
+    return np.zeros(0, np.int32), np.zeros(0, bool), np.array([1, 2], np.int32), np.ones(2, bool)
+
+
+@pytest.mark.parametrize("name", ["int32 extremes", "duplicates, mixed masks", "m=0", "n=0"])
+def test_semijoin_edge_cases_match_oracle(name):
+    q, qm, k, km = _edge_case(name)
+    if name == "m=0":
+        # ref.semijoin traces its key-block loop body even for no block and
+        # cannot slice an empty key column (ROADMAP Queue 3): hold the port
+        # at m = 0 against the oracle on one masked-out key, the same set
+        got = tops.semijoin(*map(torch.from_numpy, (q, qm, k, km)), block=4)
+        want = semijoin_both(q, qm, np.zeros(1, np.int32), np.zeros(1, bool), 4)
+        assert torch.equal(got, want)
+    else:
+        got = semijoin_both(q, qm, k, km, 4)
+    np.testing.assert_array_equal(got.numpy(), np.isin(q, k[km]) & qm)
+
+
+@pytest.mark.parametrize("m,slots", [(0, 1024), (1, 1024), (512, 1024), (513, 2048),
+                                     (75_000, 262_144), (1 << 20, 1 << 21)])
+def test_semijoin_table_slots(m, slots):
+    """The kernel's table: a power of two at least 2 m, at least the minimum."""
+    got = tsj.table_slots(m)
+    assert got == slots
+    assert got & (got - 1) == 0 and got >= max(2 * m, tsj.MIN_TABLE_SLOTS)
 
 
 def test_semijoin_other_devices_raise():
