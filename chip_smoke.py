@@ -9,14 +9,23 @@ Phases, each of which must pass or the script exits non-zero:
 2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu``,
    ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
    ``semijoin.cu``) with nvcc, one process each, at once; log what
-   ``ptxas`` says of registers and spills;
+   ``ptxas`` says of registers and spills, and fail if any of the DC scan's
+   ten instantiations spills;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
-   zeros; then its time, the plain version's time and its bound at
+   zeros, then over every case of ``kernels/dc_scan_check.py`` (each
+   specialised atom count and the generic path up to 8 atoms over 16
+   columns, integer extremes, int32 above 2**24 in a float atom, blocks 1,
+   64, 100 and 1,024, 7 col chunks over 50 col blocks, a one-row-block
+   strip); two launches of the timing case and a one-chunk launch give the
+   same bits; then its time (the call, and the kernel alone by
+   ``torch.profiler``), the plain version's time and its bound at
    n = 131,072 on the full worklist;
 4. the DC role scan (the same kernel with role t2 compiled out) against its
-   plain version, bit for bit, over the same kinds of cases; then its time,
-   the plain version's and its bound on fig12's DC at n = 131,072, one role;
+   plain version, bit for bit, over the same kinds of cases and the same
+   check cases, two launches of its timing case bit-identical; then its
+   time, the plain version's and its bound on fig12's DC at n = 131,072,
+   one role;
 5. the semijoin kernel (a hash build and probe) against its plain version
    and ``torch.isin``, bit for bit, at the reference kernel tests' shapes,
    with an all-false key mask, INT32_MIN, INT32_MAX, -1 and 0 as keys,
@@ -43,7 +52,9 @@ Phases, each of which must pass or the script exits non-zero:
    SSB lineorder at scale factor 1 (6,000,000 rows), 20 range queries;
 8. the DC path (fig12's price/discount DC at 2% violations) at 131,072
    rows, once through the kernel and once with the plain version forced,
-   answers and overlays bit-identical, kernel launches counted;
+   answers and overlays bit-identical, kernel launches counted; then the
+   kernel's own device time on the path, a fresh ``Daisy``'s first query
+   under ``torch.profiler``;
 9. the join path (fig13's lineorder |x| suppliers on suppkey, FDs on both
    tables): 20 range joins and the region group-by on the card against the
    CPU at 65,536 rows, then at SF1 (6,000,000 lineorder rows, 2,000
@@ -51,7 +62,8 @@ Phases, each of which must pass or the script exits non-zero:
 10. the offline baseline: ``OfflineCleaner.clean_all`` on the SF1 FD
     workload, its answers equal to Daisy's on the 20 queries of phase 7
     (the FD guarantee), then on the DC workload of phase 8 (one pair-scan
-    launch);
+    launch), the cleaned relation bit-identical to a ``clean_all``
+    through the plain version;
 11. qwen3-4b at its published width (36 layers, d_model 2560, vocab
    151,936) with weights from a seed: in float32 compute, prefill(256) then
    decode(token 256) against forward(257) at the last position, and
@@ -84,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,17 +172,6 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ helpers
-def bits(t):
-    """Bit pattern of a tensor, for exact comparison (NaNs are canonical)."""
-    import torch
-
-    if t.dtype in (torch.float32,):
-        return t.view(torch.int32)
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16)
-    return t
-
-
 def max_abs_err(a, b) -> float:
     import torch
 
@@ -180,20 +182,25 @@ def max_abs_err(a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def same_flat(got, want, what: str) -> float:
+    """Hold two flat scan outputs (counts, then stats, role by role) bit for
+    bit; returns the max abs error."""
+    from repro_torch.kernels import dc_scan_check as dsc
+
+    differs = dsc.same_bits(got, want)
+    if differs:
+        fail(f"{what}: kernel differs from the plain version: {differs}")
+    return max([0.0] + [max_abs_err(g, w) for g, w in zip(got, want)])
+
+
+def pair_flat(res):
+    """A ``DCPairScanResult`` as a flat scan output."""
+    return (res.t1_count, *res.t1_stat, res.t2_count, *res.t2_stat)
+
+
 def same_scan(got, want, what: str) -> float:
     """Hold two ``DCPairScanResult``s bit for bit; returns the max abs error."""
-    import torch
-
-    err = 0.0
-    pairs = [(got.t1_count, want.t1_count), (got.t2_count, want.t2_count)]
-    pairs += list(zip(got.t1_stat, want.t1_stat)) + list(zip(got.t2_stat, want.t2_stat))
-    for g, w in pairs:
-        if g.dtype != w.dtype or g.shape != w.shape:
-            fail(f"{what}: dtype/shape {g.dtype}{tuple(g.shape)} != {w.dtype}{tuple(w.shape)}")
-        err = max(err, max_abs_err(g, w))
-        if not torch.equal(bits(g), bits(w)):
-            fail(f"{what}: kernel differs from the plain version (max abs err {err})")
-    return err
+    return same_flat(pair_flat(got), pair_flat(want), what)
 
 
 def _counted():
@@ -249,6 +256,7 @@ def kernel_phase(dev):
     import torch
 
     from repro_torch.kernels import dc_pairs
+    from repro_torch.kernels import dc_scan_check as dsc
 
     rng = np.random.default_rng(0)
 
@@ -315,18 +323,90 @@ def kernel_phase(dev):
         fail("empty worklist does not give identities")
     log("kernel == plain: empty worklist: identities, no launch")
 
+    err = max(err, scan_check_cases(dev, both=True))
+
+    res = timing_case()
+    again = timing_case()
+    torch.cuda.synchronize()
+    same_scan(again, res, "timing case, second launch against the first")
+    same_flat(dsc.scan(dsc.timing_inputs(dev), True, chunks=1), pair_flat(res),
+              "timing case in one col chunk against the default chunking")
+    log("dc_pair_scan timing case: two launches bit-identical, and one col chunk against "
+        "the default chunking")
     ms = cuda_ms(timing_case, 5)
+    kernel_ms = scan_kernel_ms(timing_case, 3)
     with dc_pairs.plain_version():
         plain_ms = cuda_ms(timing_case, 1)
-    res = timing_case()
     bound_ms, bound_by, detail = scan_bound(
         [price, disc], [price, disc], ["<", ">"], full_scope, full_scope,
         [res.t1_count, res.t2_count], res.t1_stat + res.t2_stat,
     )
-    log(f"dc_pair_scan n={n} full worklist: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}; {detail})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    log(f"dc_pair_scan n={n} full worklist: call {ms:.3f} ms (the kernel alone {kernel_ms:.3f} "
+        f"ms of device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {detail})")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def scan_check_cases(dev, both: bool) -> float:
+    """Every case of ``kernels.dc_scan_check`` (each instantiation, every
+    dtype, NaN and signed zeros, integer extremes, blocks 1 to 1,024, an
+    uneven col chunking, a one-row-block strip, a sparse worklist) through
+    the kernel against the plain version, bit for bit, one launch each."""
+    from repro_torch.kernels import dc_pairs
+    from repro_torch.kernels import dc_scan_check as dsc
+
+    name = "dc_pair_scan" if both else "dc_role_scan"
+    err = 0.0
+    for case in dsc.CASES:
+        before = dc_pairs.LAUNCHES[name]
+        _, got, want = dsc.check_case(case, dev, both)
+        if dc_pairs.LAUNCHES[name] != before + 1:
+            fail(f"{name} {case.name}: {dc_pairs.LAUNCHES[name] - before} launches, not one")
+        err = max(err, same_flat(got, want, f"{name} {case.name}"))
+        log(f"{name} == plain: {case.name}: bit-identical")
+    return err
+
+
+def event_device_us(e) -> float:
+    """A profiler event's own device time in microseconds (the attribute's
+    name differs between PyTorch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_top(prof, k: int):
+    """The ``k`` profiled kernels with the most device time: (name, ms)."""
+    import torch
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -event_device_us(e))
+    return [(e.key[:60], round(event_device_us(e) / 1e3, 3)) for e in kernels[:k]]
+
+
+def named_device_us(prof, name_part: str):
+    """(device microseconds, launches) of the profiled kernels whose name
+    holds ``name_part``."""
+    import torch
+
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.key]
+    return sum(event_device_us(e) for e in hits), sum(e.count for e in hits)
+
+
+def scan_kernel_ms(fn, reps: int) -> float:
+    """Device time a call of ``fn`` spends in the DC scan kernel itself
+    (``torch.profiler``), without the key preparation and decode around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return named_device_us(prof, "dc_scan_kernel")[0] / 1e3 / reps
 
 
 def scan_bound(l_cols, r_cols, ops, rs, cs, counts, stats, both=True, block=256):
@@ -392,16 +472,7 @@ def role_case(l_cols, r_cols, ops, rs, cs, reduces=None, block=256, **restr):
 
 def same_role(got, want, what: str) -> float:
     """Hold two role-scan outputs ``(count, stats)`` bit for bit."""
-    import torch
-
-    err = 0.0
-    for g, w in [(got[0], want[0])] + list(zip(got[1], want[1])):
-        if g.dtype != w.dtype or g.shape != w.shape:
-            fail(f"{what}: dtype/shape {g.dtype}{tuple(g.shape)} != {w.dtype}{tuple(w.shape)}")
-        err = max(err, max_abs_err(g, w))
-        if not torch.equal(bits(g), bits(w)):
-            fail(f"{what}: kernel differs from the plain version (max abs err {err})")
-    return err
+    return same_flat((got[0], *got[1]), (want[0], *want[1]), what)
 
 
 def role_scan_phase(dev):
@@ -478,16 +549,24 @@ def role_scan_phase(dev):
         fail("role scan: empty worklist does not give identities")
     log("role scan == plain: empty worklist: identities, no launch")
 
+    err = max(err, scan_check_cases(dev, both=False))
+
+    count, stats = timing_case()
+    again = timing_case()
+    torch.cuda.synchronize()
+    err = max(err, same_role(again, (count, stats), "role timing case, second launch"))
+    log("dc_role_scan timing case: two launches bit-identical")
     ms = cuda_ms(timing_case, 5)
+    kernel_ms = scan_kernel_ms(timing_case, 3)
     with dc_pairs.plain_version():
         plain_ms = cuda_ms(timing_case, 1)
-    count, stats = timing_case()
     bound_ms, bound_by, detail = scan_bound(
         [price, disc], [price, disc], ["<", ">"], full, full, [count], stats, both=False)
-    log(f"dc_role_scan n={n} full worklist, one role: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {detail})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    log(f"dc_role_scan n={n} full worklist, one role: call {ms:.3f} ms (the kernel alone "
+        f"{kernel_ms:.3f} ms of device time), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {detail})")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -900,9 +979,9 @@ def dc_workload(device):
     return rel, dc
 
 
-def dc_run(dev):
+def dc_daisy(dev):
+    """A fresh ``Daisy`` over the DC workload, and its 20 price-range queries."""
     import numpy as np
-    import torch
 
     from repro_torch.core.executor import Daisy, DaisyConfig
 
@@ -911,8 +990,16 @@ def dc_run(dev):
                   DaisyConfig(dc_partitions=16, accuracy_threshold=0.3,
                               expected_queries=N_QUERIES, use_cost_model=False),
                   device=dev)
+    queries = range_queries("extended_price", np.linspace(1000, 5000, N_QUERIES + 1), True)
+    return daisy, dc, queries
+
+
+def dc_run(dev):
+    import torch
+
+    daisy, dc, queries = dc_daisy(dev)
     states, times = [], []
-    for q in range_queries("extended_price", np.linspace(1000, 5000, N_QUERIES + 1), True):
+    for q in queries:
         t0 = time.perf_counter()
         res = daisy.execute(q)
         torch.cuda.synchronize()
@@ -941,7 +1028,35 @@ def dc_phase(dev):
         f"kernel launches {launches}, tiles {tiles}, modes {modes}")
     log(f"DC path: kernel run {sum(times):.3f} s, plain run {sum(plain_times):.3f} s; "
         f"per query ms (kernel) {[round(t * 1e3, 3) for t in times]}")
-    return counts, sum(times)
+    path_ms, path_launches, wall_ms, busy_ms, top = dc_query0_profile(dev)
+    log(f"DC path query 0 of a fresh Daisy under torch.profiler: dc_scan_kernel "
+        f"{path_ms:.3f} ms of device time in {path_launches} launch(es), on fig12's data "
+        f"(2% violations); the query {wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}); top {top}")
+    return counts, sum(times), path_ms
+
+
+def dc_query0_profile(dev):
+    """The scan kernel's device time on the DC path itself: a fresh
+    ``Daisy``'s first query (the one that cleans), under ``torch.profiler``,
+    read by the kernel's name; with the query's wall time, its kernels'
+    busy time and the five largest kernels.  No warm-up call: a second run
+    of the query would find the scope clean and skip."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    daisy, _, queries = dc_daisy(dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        daisy.execute(queries[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us, launches = named_device_us(prof, "dc_scan_kernel")
+    if launches < 1:
+        fail("the profiled DC query 0 shows no dc_scan_kernel launch")
+    busy_us, top = named_device_us(prof, ""), device_top(prof, 5)
+    return us / 1e3, launches, wall_ms, busy_us[0] / 1e3, top
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1096,8 +1211,34 @@ def offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s):
     launches = dc_pairs.LAUNCHES["dc_pair_scan"] - before
     if launches != 1 or not bool(off.db["t"].checked["dc_pd"][: DC_ROWS].all()):
         fail(f"offline DC clean_all: {launches} pair-scan launches, not one over the full worklist")
+    rel_plain, _ = dc_workload(dev)
+    off_plain = OfflineCleaner({"t": rel_plain}, {"t": [dc]})
+    with dc_pairs.plain_version():
+        off_plain.clean_all()
+    same_relation(off.db["t"], off_plain.db["t"], "offline DC clean_all, kernel vs plain")
     log(f"offline DC {DC_ROWS} rows: clean_all {t_dc:.3f} s with {launches} dc_pair_scan "
-        f"launch (Daisy's 20 queries: {dc_daisy_s:.3f} s)")
+        f"launch (Daisy's 20 queries: {dc_daisy_s:.3f} s); the relation == the plain "
+        f"version's clean_all, bit for bit")
+
+
+def same_relation(a, b, what: str) -> None:
+    """Hold two relations' columns, overlays, checked bits and valid rows
+    bit for bit."""
+    import numpy as np
+
+    from repro_torch.testing import relation_to_numpy
+
+    x, y = relation_to_numpy(a), relation_to_numpy(b)
+    for field in ("columns", "cand", "ccount", "ckind", "orig", "checked"):
+        if x[field].keys() != y[field].keys():
+            fail(f"{what}: {field} keys differ")
+        for k in x[field]:
+            u, v = x[field][k], y[field][k]
+            if u.dtype != v.dtype or u.shape != v.shape or not np.array_equal(
+                    u.view(np.uint8), v.view(np.uint8)):
+                fail(f"{what}: {field}[{k}] differs")
+    if not np.array_equal(x["valid"], y["valid"]):
+        fail(f"{what}: valid differs")
 
 
 # ------------------------------------------------------------------ phase 11
@@ -1137,14 +1278,11 @@ def device_profile(fn, reps: int):
             fn()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / reps
-    top = sorted(kernels, key=lambda e: -dev_us(e))[:5]
-    return busy_ms, [(e.key[:70], round(dev_us(e) / 1e3 / reps, 3)) for e in top]
+               if e.device_type == torch.autograd.DeviceType.CUDA and event_device_us(e) > 0]
+    busy_ms = sum(event_device_us(e) for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -event_device_us(e))[:5]
+    return busy_ms, [(e.key[:70], round(event_device_us(e) / 1e3 / reps, 3)) for e in top]
 
 
 def lm_phase(dev):
@@ -1407,6 +1545,11 @@ def main() -> int:
         for line in build.BUILD_LOG[name]["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    # every instantiation of the DC scan kernel, without a spill
+    dc_ptxas = build.BUILD_LOG["dc_pairs"]["ptxas"]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", dc_ptxas)
+    if len(spills) < 10 or any(int(a) or int(b) for a, b in spills):
+        fail(f"dc_pairs.cu: {len(spills)} instantiations, spills {spills}")
 
     dc_measured = kernel_phase(dev)
     role_measured = role_scan_phase(dev)
@@ -1423,7 +1566,8 @@ def main() -> int:
         return out
 
     fd_queries, fd_masks, fd_daisy_s = drive("fd", lambda: fd_phase(dev))
-    paths["dc"], dc_daisy_s = dc_phase(dev)
+    paths["dc"], dc_daisy_s, dc_path_ms = dc_phase(dev)
+    dc_measured["path_query0_kernel_ms"] = dc_path_ms
     drive("join", lambda: join_phase(dev))
     drive("offline", lambda: offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s))
     del fd_masks

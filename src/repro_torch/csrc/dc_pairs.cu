@@ -7,43 +7,60 @@
 // by global id), role t1 tests the atoms as written, role t2 the flipped atoms
 // with the column sides swapped.  Per row and role it counts the partners for
 // which every atom holds and keeps, per atom, the min or max of the partner's
-// value (the identity of the column's own dtype when the count is 0).  The
-// role scan (kBoth = false) is role t1 alone: role t2's tile pruning,
-// compares and writes are compiled out, so it does half the pair scan's work.
+// value.  The role scan (kBoth = false) is role t1 alone.
 //
 // What bounds it on this card: operations.  Every worklist pair costs a few
-// 32-bit comparisons per role and the inputs are a few bytes per ROW, so the
-// scan does O(n^2) comparisons over O(n) bytes.  The design keeps the bytes
-// out of the way and spends nothing on synchronisation:
-//   * one thread block per worklist row block, one thread per row, so each
-//     row's atom operands, count and running min/max live in registers;
-//   * the block walks the col-block id list; per col block it reads the
-//     per-block min/max bounds and skips the tile when some atom cannot hold
-//     anywhere in it (the paper's partition pruning, per role), otherwise it
-//     stages the distinct atom columns and the col scope of the tile in shared
-//     memory once for both roles;
-//   * every output element is written once, by its row's thread: no atomics,
-//     and the result does not depend on the order blocks run in.
-// Comparisons run in an exact widened type: int8/int16/int32 as int32, bf16 and
-// float32 as float32 (an atom over an integer and a float column compares in
-// float32, like the reference's type promotion).  Min/max follow XLA: NaN
-// propagates and -0.0 orders below +0.0.  wgmma and TMA do not apply to
-// comparisons; making the scan fast is later work.
+// 32-bit instructions per role and atom, and the inputs are a few bytes per
+// ROW, so the scan does O(n^2) work over O(n) bytes.  The design spends as few
+// instructions per pair and role as it can:
+//   * every atom is one range test on int32 keys that the wrapper
+//     (kernels/dc_pairs.py) prepares on the device: for a row value x the
+//     partners y with `x op y` form one interval, possibly wrapping, of an
+//     order-preserving key, so the test is `(uint32)(key_y - lo_x) <= span_x`
+//     whatever the op and dtype (no op switch, no int-or-float branch; NaN,
+//     -0.0 and int-to-float rounding are settled in the keys).  A row whose
+//     atom can hold for no partner is flagged dead and writes nothing;
+//   * the reduce is always a min: a max-reduced key is stored bit-inverted,
+//     and a NaN partner is stored as INT32_MIN so that it wins, as in XLA.
+//     The wrapper decodes the keys to the column's dtype after the launch;
+//   * the kernel is a template on the atom count (1-4, and 8 as the generic
+//     path, whose unused atoms always hold) and on the role switch; per
+//     (row, partner) the hold test and its updates are predicated PTX: N
+//     range compares, one predicated add and N predicated mins (in C++
+//     the compiler makes each predicated min a compare and a select);
+//   * each thread holds R rows in registers, and partner keys come from
+//     shared memory as 16-byte vectors, so one load feeds 4 partners x R
+//     rows; the col tiles stream through a two-stage cp.async ring, and a
+//     tile whose partners all lie in the col scope skips the scope test;
+//   * the CTA's rows are one worklist row block (or a piece of it), and its
+//     col blocks one chunk of the worklist's col list: a 2-D grid of
+//     (row item, col chunk) sized to about DC_WAVES waves of resident CTAs.
+//     Chunks merge with integer atomics (add for counts, min for the keys),
+//     which commute, so the result is the same bits in any order;
+//   * the per-block bound pruning (the paper's partition pruning) is
+//     evaluated once per (row block, col block) item into a shared list of
+//     the surviving col blocks; the diagonal test j != i runs only in tiles
+//     whose col block is the row block.
+// wgmma and TMA do not apply to comparisons.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #define DC_MAX_ATOMS 8
 #define DC_MAX_DISTINCT 16
+#define DC_MAX_ARRAYS 32  // partner key arrays: compare and stat, per role and atom
+#define DC_TILE 256       // partners per shared-memory tile
+#define DC_MAX_LIST 1024  // col blocks per chunk (the shared list's length)
+#define DC_MAX_THREADS 256
+// rows a thread holds for one or two atoms, and for three or four (the
+// generic path holds 2); CTA waves over every SM that the chunking aims for
+#define DC_ROWS_FEW 4
+#define DC_ROWS_MANY 2
+#define DC_WAVES 16
 
-// column dtype codes (kernels/dc_pairs.py::_DTYPE_CODE)
-#define DT_INT32 0
-#define DT_FLOAT32 1
-#define DT_INT8 2
-#define DT_INT16 3
-#define DT_BF16 4
-
-// atom op codes (kernels/dc_pairs.py::_OP_CODE)
+// atom op codes (kernels/dc_pairs.py::_OP_CODE), used by the tile pruning only
 #define OP_EQ 0
 #define OP_NE 1
 #define OP_LT 2
@@ -51,82 +68,44 @@
 #define OP_GT 4
 #define OP_GE 5
 
-#define RED_MIN 0
-#define RED_MAX 1
-
-#define CANON_NAN_BITS 0x7fc00000u
-
-struct DcArgs {
-  const void* cols[DC_MAX_DISTINCT];  // distinct atom columns, padded to nb*block
-  void* stat1[DC_MAX_ATOMS];          // role t1 stats, dtype of the atom's right column
-  void* stat2[DC_MAX_ATOMS];          // role t2 stats, dtype of the atom's left column
-  const int32_t* bounds;              // [4][n_distinct][nb] raw 32-bit widened bounds
-  const uint8_t* row_scope;           // (nb*block,)
-  const uint8_t* col_scope;           // (nb*block,)
-  const int32_t* rid;                 // (nrows,) worklist row block ids
-  const int32_t* cid;                 // (ncols,) worklist col block ids
-  int32_t* count1;                    // (nb*block,)
-  int32_t* count2;                    // (nb*block,); unused by the role scan
-  int32_t col_dtype[DC_MAX_DISTINCT];
-  int32_t op1[DC_MAX_ATOMS];
-  int32_t op2[DC_MAX_ATOMS];
-  int32_t red1[DC_MAX_ATOMS];
-  int32_t red2[DC_MAX_ATOMS];
-  int32_t l_idx[DC_MAX_ATOMS];
-  int32_t r_idx[DC_MAX_ATOMS];
+struct ScanArgs {
+  const int32_t* keys[DC_MAX_ARRAYS];  // (npad,) stored partner keys, one per array
+  const int32_t* valid;                // (npad,) col scope, 0 or 1
+  const uint8_t* full;                 // [nb][tiles a block]: every partner in scope
+  const int32_t* lo;                   // [roles][kernel_atoms][npad] interval starts
+  const int32_t* span;                 // [roles][kernel_atoms][npad] interval lengths - 1
+  const uint8_t* alive;                // [roles][npad] row in scope, no atom dead
+  const int32_t* bounds;               // [4][n_distinct][nb] raw 32-bit widened bounds
+  const int32_t* rid;                  // (nrows,) worklist row block ids
+  const int32_t* cid;                  // (ncols,) worklist col block ids
+  int32_t* count;                      // [roles][npad], zeroed
+  int32_t* stat;                       // [roles][kernel_atoms][npad], INT32_MAX
+  int32_t cmp_arr[2][DC_MAX_ATOMS];    // key array each role's atom compares
+  int32_t stat_arr[2][DC_MAX_ATOMS];   // key array each role's atom reduces
+  int32_t op[2][DC_MAX_ATOMS];         // each role's atom op, for the pruning
+  int32_t row_col[2][DC_MAX_ATOMS];    // distinct column on the row side
+  int32_t par_col[2][DC_MAX_ATOMS];    // distinct column on the partner side
+  int32_t col_float[DC_MAX_DISTINCT];  // distinct column is bf16 or float32
+  int32_t n_arrays;
   int32_t nrows;
   int32_t ncols;
   int32_t nb;
   int32_t block;
   int32_t n_distinct;
   int32_t n_atoms;
+  int32_t kernel_atoms;  // 1-4, or 8: the generic path
+  int32_t chunks;        // col chunks (0: fill the card)
+  int32_t pieces;        // CTAs a row block, set by the launch
 };
 
-__device__ __forceinline__ bool is_float(int dt) {
-  return dt == DT_FLOAT32 || dt == DT_BF16;
-}
-
-// Widen element idx of a column to 32 bits: int32 for integer dtypes, float32
-// bits for float dtypes.  Both widenings are exact.
-__device__ __forceinline__ uint32_t load_wide(const void* p, int dt, int idx) {
-  switch (dt) {
-    case DT_INT8:
-      return (uint32_t)(int32_t)((const int8_t*)p)[idx];
-    case DT_INT16:
-      return (uint32_t)(int32_t)((const int16_t*)p)[idx];
-    case DT_BF16:
-      return ((uint32_t)((const uint16_t*)p)[idx]) << 16;
-    default:  // int32 and float32 are 32-bit already
-      return ((const uint32_t*)p)[idx];
-  }
-}
-
-__device__ __forceinline__ float as_f(uint32_t bits, bool fl) {
-  return fl ? __uint_as_float(bits) : (float)(int32_t)bits;
-}
-
-template <typename T>
-__device__ __forceinline__ bool apply_op(int op, T x, T y) {
-  switch (op) {
-    case OP_EQ: return x == y;
-    case OP_NE: return x != y;
-    case OP_LT: return x < y;
-    case OP_LE: return x <= y;
-    case OP_GT: return x > y;
-    default: return x >= y;
-  }
-}
-
-// x op y, in int32 when both sides are integers, else in float32.
-__device__ __forceinline__ bool compare(int op, uint32_t x, bool xf, uint32_t y, bool yf) {
-  if (!xf && !yf) return apply_op<int32_t>(op, (int32_t)x, (int32_t)y);
-  return apply_op<float>(op, as_f(x, xf), as_f(y, yf));
+__device__ __forceinline__ float as_f(int32_t bits, bool fl) {
+  return fl ? __int_as_float(bits) : (float)bits;
 }
 
 // Can `l op r` hold for some l in [lmin, lmax], r in [rmin, rmax]?  A NaN
 // bound (a NaN in scope) proves nothing, so the tile stays possible.
-__device__ __forceinline__ bool tile_possible(int op, uint32_t lmin, uint32_t lmax, bool lf,
-                                              uint32_t rmin, uint32_t rmax, bool rf) {
+__device__ __forceinline__ bool tile_possible(int op, int32_t lmin, int32_t lmax, bool lf,
+                                              int32_t rmin, int32_t rmax, bool rf) {
   if (lf || rf) {
     float a = as_f(lmin, lf), b = as_f(lmax, lf), c = as_f(rmin, rf), d = as_f(rmax, rf);
     if (isnan(a) || isnan(b) || isnan(c) || isnan(d)) return true;
@@ -139,7 +118,7 @@ __device__ __forceinline__ bool tile_possible(int op, uint32_t lmin, uint32_t lm
       default: return !(a == b && c == d && a == c);
     }
   }
-  int32_t a = (int32_t)lmin, b = (int32_t)lmax, c = (int32_t)rmin, d = (int32_t)rmax;
+  int32_t a = lmin, b = lmax, c = rmin, d = rmax;
   switch (op) {
     case OP_LT: return a < d;
     case OP_LE: return a <= d;
@@ -150,167 +129,417 @@ __device__ __forceinline__ bool tile_possible(int op, uint32_t lmin, uint32_t lm
   }
 }
 
-// Reduce identity of an output dtype, widened.
-__device__ __forceinline__ uint32_t identity(int dt, int red) {
-  bool mn = red == RED_MIN;
-  switch (dt) {
-    case DT_INT8: return (uint32_t)(mn ? 127 : -128);
-    case DT_INT16: return (uint32_t)(mn ? 32767 : -32768);
-    case DT_INT32: return mn ? 0x7fffffffu : 0x80000000u;
-    default: return mn ? 0x7f800000u : 0xff800000u;  // +inf / -inf
-  }
-}
-
-// XLA's min/max: NaN wins, and -0.0 < +0.0.
-__device__ __forceinline__ uint32_t reduce(uint32_t acc, uint32_t v, bool fl, int red) {
-  if (!fl) {
-    int32_t a = (int32_t)acc, b = (int32_t)v;
-    return (uint32_t)(red == RED_MIN ? min(a, b) : max(a, b));
-  }
-  float a = __uint_as_float(acc), b = __uint_as_float(v);
-  if (isnan(a) || isnan(b)) return CANON_NAN_BITS;
-  if (a < b) return red == RED_MIN ? acc : v;
-  if (b < a) return red == RED_MIN ? v : acc;
-  // equal: only the zeros can differ, by sign
-  bool neg_acc = acc >> 31;
-  if (red == RED_MIN) return neg_acc ? acc : v;
-  return neg_acc ? v : acc;
-}
-
-__device__ __forceinline__ void store_narrow(void* p, int dt, int idx, uint32_t v) {
-  switch (dt) {
-    case DT_INT8: ((int8_t*)p)[idx] = (int8_t)(int32_t)v; break;
-    case DT_INT16: ((int16_t*)p)[idx] = (int16_t)(int32_t)v; break;
-    case DT_BF16: ((uint16_t*)p)[idx] = (uint16_t)(v >> 16); break;
-    default: ((uint32_t*)p)[idx] = v; break;
-  }
-}
-
-template <bool kBoth>
-__global__ void dc_scan_kernel(const DcArgs a) {
-  extern __shared__ uint32_t tile[];  // [n_distinct][block] col values, then col scope
-  uint8_t* tile_scope = (uint8_t*)(tile + a.n_distinct * a.block);
-  const int t = threadIdx.x;
-  const int rb = a.rid[blockIdx.x];
-  const int row = rb * a.block + t;
-  const bool in_scope = a.row_scope[row] != 0;
-  const int nd = a.n_distinct, nb = a.nb;
+// Role `role`'s pruning predicate for the tile (row block rb, col block cb).
+__device__ __forceinline__ bool role_possible(const ScanArgs& a, int role, int rb, int cb) {
+  const int nb = a.nb, nd = a.n_distinct;
   const int32_t* row_min = a.bounds;
   const int32_t* row_max = a.bounds + nd * nb;
   const int32_t* col_min = a.bounds + 2 * nd * nb;
   const int32_t* col_max = a.bounds + 3 * nd * nb;
-
-  uint32_t lv[DC_MAX_ATOMS], rv[DC_MAX_ATOMS], s1[DC_MAX_ATOMS], s2[DC_MAX_ATOMS];
-  bool lf[DC_MAX_ATOMS], rf[DC_MAX_ATOMS];
-#pragma unroll
-  for (int i = 0; i < DC_MAX_ATOMS; ++i) {
-    if (i < a.n_atoms) {
-      int li = a.l_idx[i], ri = a.r_idx[i];
-      lf[i] = is_float(a.col_dtype[li]);
-      rf[i] = is_float(a.col_dtype[ri]);
-      lv[i] = load_wide(a.cols[li], a.col_dtype[li], row);
-      s1[i] = identity(a.col_dtype[ri], a.red1[i]);
-      if (kBoth) {
-        rv[i] = load_wide(a.cols[ri], a.col_dtype[ri], row);
-        s2[i] = identity(a.col_dtype[li], a.red2[i]);
-      }
-    }
+  bool ok = true;
+  for (int i = 0; i < a.n_atoms; ++i) {
+    const int rc = a.row_col[role][i], pc = a.par_col[role][i];
+    ok = ok && tile_possible(a.op[role][i], row_min[rc * nb + rb], row_max[rc * nb + rb],
+                             a.col_float[rc] != 0, col_min[pc * nb + cb],
+                             col_max[pc * nb + cb], a.col_float[pc] != 0);
   }
-  int c1 = 0, c2 = 0;
+  return ok;
+}
 
-  for (int ci = 0; ci < a.ncols; ++ci) {
-    const int cb = a.cid[ci];
-    // per-role tile pruning from the block bounds; uniform across the block
-    bool p1 = true, p2 = kBoth;
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// One role's state for the R rows a thread holds.
+template <int N, int R>
+struct RoleState {
+  uint32_t nlo[R][N];  // -lo: the test is key + nlo <= span
+  uint32_t span[R][N];
+  int32_t s[R][N];  // running min of the stored stat keys
+  int32_t c[R];
+  bool alive[R];
+  int off[N];   // shared-memory offset of each atom's compare keys
+  int soff[N];  // and of its stat keys
+};
+
+template <int N, int R>
+__device__ __forceinline__ void init_role(RoleState<N, R>& st, const ScanArgs& a, int role,
+                                          int rb, const int (&loc)[R], size_t np) {
 #pragma unroll
-    for (int i = 0; i < DC_MAX_ATOMS; ++i) {
-      if (i < a.n_atoms) {
-        int li = a.l_idx[i], ri = a.r_idx[i];
-        p1 = p1 && tile_possible(a.op1[i], row_min[li * nb + rb], row_max[li * nb + rb], lf[i],
-                                 col_min[ri * nb + cb], col_max[ri * nb + cb], rf[i]);
-        if (kBoth)
-          p2 = p2 && tile_possible(a.op2[i], row_min[ri * nb + rb], row_max[ri * nb + rb], rf[i],
-                                   col_min[li * nb + cb], col_max[li * nb + cb], lf[i]);
-      }
-    }
-    if (!p1 && !p2) continue;
-    __syncthreads();  // the previous tile is no longer read
-    const int base = cb * a.block;
-    for (int d = 0; d < nd; ++d)
-      tile[d * a.block + t] = load_wide(a.cols[d], a.col_dtype[d], base + t);
-    tile_scope[t] = a.col_scope[base + t];
-    __syncthreads();
-    if (!in_scope) continue;
-    for (int j = 0; j < a.block; ++j) {
-      if (!tile_scope[j] || base + j == row) continue;
-      if (p1) {
-        bool hold = true;
-#pragma unroll
-        for (int i = 0; i < DC_MAX_ATOMS; ++i)
-          if (i < a.n_atoms)
-            hold = hold && compare(a.op1[i], lv[i], lf[i], tile[a.r_idx[i] * a.block + j], rf[i]);
-        if (hold) {
-          ++c1;
-#pragma unroll
-          for (int i = 0; i < DC_MAX_ATOMS; ++i)
-            if (i < a.n_atoms)
-              s1[i] = reduce(s1[i], tile[a.r_idx[i] * a.block + j], rf[i], a.red1[i]);
-        }
-      }
-      if (kBoth && p2) {
-        bool hold = true;
-#pragma unroll
-        for (int i = 0; i < DC_MAX_ATOMS; ++i)
-          if (i < a.n_atoms)
-            hold = hold && compare(a.op2[i], rv[i], rf[i], tile[a.l_idx[i] * a.block + j], lf[i]);
-        if (hold) {
-          ++c2;
-#pragma unroll
-          for (int i = 0; i < DC_MAX_ATOMS; ++i)
-            if (i < a.n_atoms)
-              s2[i] = reduce(s2[i], tile[a.l_idx[i] * a.block + j], lf[i], a.red2[i]);
-        }
-      }
-    }
+  for (int i = 0; i < N; ++i) {
+    st.off[i] = a.cmp_arr[role][i] * DC_TILE;
+    st.soff[i] = a.stat_arr[role][i] * DC_TILE;
   }
-
-  a.count1[row] = c1;
-  if (kBoth) a.count2[row] = c2;
 #pragma unroll
-  for (int i = 0; i < DC_MAX_ATOMS; ++i) {
-    if (i < a.n_atoms) {
-      store_narrow(a.stat1[i], a.col_dtype[a.r_idx[i]], row, s1[i]);
-      if (kBoth) store_narrow(a.stat2[i], a.col_dtype[a.l_idx[i]], row, s2[i]);
+  for (int r = 0; r < R; ++r) {
+    const bool active = loc[r] < a.block;
+    const size_t row = (size_t)rb * a.block + loc[r];
+    st.alive[r] = active && a.alive[role * np + row] != 0;
+    st.c[r] = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const size_t at = ((size_t)role * N + i) * np + row;
+      st.nlo[r][i] = active ? 0u - (uint32_t)a.lo[at] : 0u;
+      st.span[r][i] = active ? (uint32_t)a.span[at] : 0u;
+      st.s[r][i] = INT32_MAX;
     }
   }
 }
 
-template <bool kBoth>
-static int dc_scan_launch(const DcArgs* args, void* stream) {
-  size_t smem = (size_t)args->n_distinct * args->block * sizeof(uint32_t) + args->block;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dc_scan_kernel<kBoth>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// One (row, partner) pair of one role as predicated PTX: the hold predicate
+// is the AND of the atoms' range tests `d <= sp` (d = key - lo) and, unless
+// kAll, of the partner's scope; the count and each stat's min are
+// predicated on it.  Left to itself the compiler makes each predicated
+// update a compare and a select.
+template <int N, bool kAll>
+__device__ __forceinline__ void pair_ptx(int32_t& c, int32_t (&s)[N], const int32_t (&v)[N],
+                                         const uint32_t (&d)[N], const uint32_t (&sp)[N],
+                                         int32_t valid) {
+  if constexpr (N == 1 && kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.le.u32 p, %3, %4;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %2;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0])
+        : "r"(v[0]), "r"(d[0]), "r"(sp[0]));
+  } else if constexpr (N == 1 && !kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.ne.s32 p, %5, 0;\n\t"
+        "setp.le.and.u32 p, %3, %4, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %2;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0])
+        : "r"(v[0]), "r"(d[0]), "r"(sp[0]), "r"(valid));
+  } else if constexpr (N == 2 && kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.le.u32 p, %5, %7;\n\t"
+        "setp.le.and.u32 p, %6, %8, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %3;\n\t"
+        "@p min.s32 %2, %2, %4;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1])
+        : "r"(v[0]), "r"(v[1]), "r"(d[0]), "r"(d[1]), "r"(sp[0]), "r"(sp[1]));
+  } else if constexpr (N == 2 && !kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.ne.s32 p, %9, 0;\n\t"
+        "setp.le.and.u32 p, %5, %7, p;\n\t"
+        "setp.le.and.u32 p, %6, %8, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %3;\n\t"
+        "@p min.s32 %2, %2, %4;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1])
+        : "r"(v[0]), "r"(v[1]), "r"(d[0]), "r"(d[1]), "r"(sp[0]), "r"(sp[1]), "r"(valid));
+  } else if constexpr (N == 3 && kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.le.u32 p, %7, %10;\n\t"
+        "setp.le.and.u32 p, %8, %11, p;\n\t"
+        "setp.le.and.u32 p, %9, %12, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %4;\n\t"
+        "@p min.s32 %2, %2, %5;\n\t"
+        "@p min.s32 %3, %3, %6;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1]), "+r"(s[2])
+        : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(sp[0]), "r"(sp[1]),
+          "r"(sp[2]));
+  } else if constexpr (N == 3 && !kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.ne.s32 p, %13, 0;\n\t"
+        "setp.le.and.u32 p, %7, %10, p;\n\t"
+        "setp.le.and.u32 p, %8, %11, p;\n\t"
+        "setp.le.and.u32 p, %9, %12, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %4;\n\t"
+        "@p min.s32 %2, %2, %5;\n\t"
+        "@p min.s32 %3, %3, %6;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1]), "+r"(s[2])
+        : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(sp[0]), "r"(sp[1]),
+          "r"(sp[2]), "r"(valid));
+  } else if constexpr (N == 4 && kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.le.u32 p, %9, %13;\n\t"
+        "setp.le.and.u32 p, %10, %14, p;\n\t"
+        "setp.le.and.u32 p, %11, %15, p;\n\t"
+        "setp.le.and.u32 p, %12, %16, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %5;\n\t"
+        "@p min.s32 %2, %2, %6;\n\t"
+        "@p min.s32 %3, %3, %7;\n\t"
+        "@p min.s32 %4, %4, %8;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3])
+        : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]),
+          "r"(sp[0]), "r"(sp[1]), "r"(sp[2]), "r"(sp[3]));
+  } else if constexpr (N == 4 && !kAll) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.ne.s32 p, %17, 0;\n\t"
+        "setp.le.and.u32 p, %9, %13, p;\n\t"
+        "setp.le.and.u32 p, %10, %14, p;\n\t"
+        "setp.le.and.u32 p, %11, %15, p;\n\t"
+        "setp.le.and.u32 p, %12, %16, p;\n\t"
+        "@p add.s32 %0, %0, 1;\n\t"
+        "@p min.s32 %1, %1, %5;\n\t"
+        "@p min.s32 %2, %2, %6;\n\t"
+        "@p min.s32 %3, %3, %7;\n\t"
+        "@p min.s32 %4, %4, %8;\n\t"
+        "}"
+        : "+r"(c), "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3])
+        : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]),
+          "r"(sp[0]), "r"(sp[1]), "r"(sp[2]), "r"(sp[3]), "r"(valid));
+  }
+
+}
+
+// Compare one shared-memory tile of `len4` partners (a multiple of V) against
+// the thread's R rows for one role.  `pbase` is the tile's first partner
+// within its col block; kDiag excludes the partner whose index equals the
+// row's (the tile's col block is the row block); kAll: every partner of the
+// tile is in scope, so the scope test is skipped.
+template <int N, int R, int V, bool kSplit, bool kDiag, bool kAll>
+__device__ __forceinline__ void role_tile(RoleState<N, R>& st, const int32_t* buf,
+                                          const int32_t* vbuf, int len4, int pbase,
+                                          const int (&loc)[R]) {
+  for (int j = 0; j < len4; j += V) {
+    int32_t vv[V], kk[N][V], ks[N][V];
+    if constexpr (V == 4) {
+      const int4 t = *reinterpret_cast<const int4*>(vbuf + j);
+      vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int4 k = *reinterpret_cast<const int4*>(buf + st.off[i] + j);
+        kk[i][0] = k.x; kk[i][1] = k.y; kk[i][2] = k.z; kk[i][3] = k.w;
+        if (kSplit) {
+          const int4 s = *reinterpret_cast<const int4*>(buf + st.soff[i] + j);
+          ks[i][0] = s.x; ks[i][1] = s.y; ks[i][2] = s.z; ks[i][3] = s.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        vv[q] = vbuf[j + q];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          kk[i][q] = buf[st.off[i] + j + q];
+          if (kSplit) ks[i][q] = buf[st.soff[i] + j + q];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if constexpr (N <= 4 && !kSplit && !kDiag) {
+          int32_t v[N];
+          uint32_t d[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            v[i] = kk[i][q];
+            d[i] = (uint32_t)kk[i][q] + st.nlo[r][i];
+          }
+          pair_ptx<N, kAll>(st.c[r], st.s[r], v, d, st.span[r], vv[q]);
+        } else {
+          bool h = kAll || vv[q] != 0;
+          if (kDiag) h = h & (pbase + j + q != loc[r]);
+#pragma unroll
+          for (int i = 0; i < N; ++i)
+            h = h & ((uint32_t)kk[i][q] + st.nlo[r][i] <= st.span[r][i]);
+          st.c[r] += h;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const int32_t v = kSplit ? ks[i][q] : kk[i][q];
+            st.s[r][i] = h ? min(st.s[r][i], v) : st.s[r][i];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int N, int R>
+__device__ __forceinline__ void flush_role(const RoleState<N, R>& st, const ScanArgs& a,
+                                           int role, int rb, const int (&loc)[R], size_t np) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!st.alive[r] || st.c[r] == 0) continue;
+    const size_t row = (size_t)rb * a.block + loc[r];
+    atomicAdd(a.count + role * np + row, st.c[r]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < a.n_atoms) atomicMin(a.stat + ((size_t)role * N + i) * np + row, st.s[r][i]);
+  }
+}
+
+template <int N, int R, int V, bool kSplit>
+__device__ __forceinline__ void scan_tile(RoleState<N, R>& st, const int32_t* buf,
+                                          const int32_t* vbuf, int len4, int pbase,
+                                          const int (&loc)[R], bool diag, bool all) {
+  if (diag) role_tile<N, R, V, kSplit, true, false>(st, buf, vbuf, len4, pbase, loc);
+  else if (all) role_tile<N, R, V, kSplit, false, true>(st, buf, vbuf, len4, pbase, loc);
+  else role_tile<N, R, V, kSplit, false, false>(st, buf, vbuf, len4, pbase, loc);
+}
+
+// grid: x = (worklist row block, piece of it), y = col chunk.
+template <int N, int R, int V, bool kBoth, bool kSplit>
+__global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanArgs a) {
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ int s_items;
+  const int T = blockDim.x, t = threadIdx.x;
+  const int stage_words = (a.n_arrays + 1) * DC_TILE;
+  uint32_t* list = reinterpret_cast<uint32_t*>(smem + 2 * stage_words);
+  const int rb = a.rid[blockIdx.x / a.pieces];
+  const int piece = blockIdx.x % a.pieces;
+  const int c0 = (int)((long long)blockIdx.y * a.ncols / gridDim.y);
+  const int c1 = (int)((long long)(blockIdx.y + 1) * a.ncols / gridDim.y);
+  const size_t np = (size_t)a.nb * a.block;
+
+  // the chunk's col blocks that some role cannot prune, in any order
+  if (t == 0) s_items = 0;
+  __syncthreads();
+  for (int ci = c0 + t; ci < c1; ci += T) {
+    const int cb = a.cid[ci];
+    const bool p1 = role_possible(a, 0, rb, cb);
+    const bool p2 = kBoth && role_possible(a, 1, rb, cb);
+    if (p1 || p2)
+      list[atomicAdd(&s_items, 1)] = (uint32_t)ci | (p1 ? 1u << 30 : 0u) | (p2 ? 1u << 31 : 0u);
+  }
+
+  int loc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) loc[r] = (piece * R + r) * T + t;
+  RoleState<N, R> st1, st2;
+  init_role(st1, a, 0, rb, loc, np);
+  if (kBoth) init_role(st2, a, 1, rb, loc, np);
+  __syncthreads();
+
+  const int nsub = (a.block + DC_TILE - 1) / DC_TILE;
+  const int total = s_items * nsub;
+  // stage a tile: every key array and the col scope of partners
+  // [sub * DC_TILE, + len) of the item's col block; slots up to len4 are
+  // out of scope
+  auto load_tile = [&](int it, int stage) {
+    const uint32_t e = list[it / nsub];
+    const int sub = it % nsub;
+    const int cb = a.cid[e & 0x3fffffffu];
+    const int first = sub * DC_TILE;
+    const int len = min(DC_TILE, a.block - first);
+    const int len4 = (len + V - 1) / V * V;
+    const size_t base = (size_t)cb * a.block + first;
+    int32_t* dst = smem + stage * stage_words;
+    for (int arr = 0; arr <= a.n_arrays; ++arr) {
+      const int32_t* src = (arr < a.n_arrays ? a.keys[arr] : a.valid) + base;
+      int32_t* d = dst + arr * DC_TILE;
+      for (int j = t; j < len4; j += T) {
+        if (j < len) cp_async4(d + j, src + j);
+        else d[j] = 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (total > 0) load_tile(0, 0);
+  for (int it = 0; it < total; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < total) {
+      load_tile(it + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t e = list[it / nsub];
+    const int sub = it % nsub;
+    const int cb = a.cid[e & 0x3fffffffu];
+    const int first = sub * DC_TILE;
+    const int len4 = (min(DC_TILE, a.block - first) + V - 1) / V * V;
+    const int32_t* buf = smem + stage * stage_words;
+    const int32_t* vbuf = buf + a.n_arrays * DC_TILE;
+    const bool diag = cb == rb;
+    const bool all = len4 == min(DC_TILE, a.block - first) && a.full[cb * nsub + sub] != 0;
+    if ((e >> 30) & 1u) scan_tile<N, R, V, kSplit>(st1, buf, vbuf, len4, first, loc, diag, all);
+    if (kBoth && (e >> 31)) scan_tile<N, R, V, kSplit>(st2, buf, vbuf, len4, first, loc, diag, all);
+    __syncthreads();  // the stage is rewritten two items on
+  }
+
+  flush_role(st1, a, 0, rb, loc, np);
+  if (kBoth) flush_role(st2, a, 1, rb, loc, np);
+}
+
+template <int N, int R, int V, bool kBoth, bool kSplit>
+static int launch(ScanArgs* a, cudaStream_t stream) {
+  auto kern = dc_scan_kernel<N, R, V, kBoth, kSplit>;
+  const int threads = std::min(DC_MAX_THREADS, ((a->block + R - 1) / R + 31) / 32 * 32);
+  const int pieces = (a->block + threads * R - 1) / (threads * R);
+  const long long row_items = (long long)a->nrows * pieces;
+  if (row_items > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t stage_bytes = (size_t)(a->n_arrays + 1) * DC_TILE * sizeof(int32_t);
+  const size_t smem_max = 2 * stage_bytes + DC_MAX_LIST * sizeof(uint32_t);
+  cudaError_t err = cudaSuccess;
+  if (smem_max > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
     if (err != cudaSuccess) return (int)err;
   }
-  dc_scan_kernel<kBoth><<<args->nrows, args->block, smem, (cudaStream_t)stream>>>(*args);
+  long long chunks = a->chunks;
+  if (chunks <= 0) {  // about DC_WAVES waves of CTAs over every SM
+    int dev = 0, sms = 1, per_sm = 1;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem_max);
+    if (err != cudaSuccess) return (int)err;
+    const long long target = (long long)DC_WAVES * (per_sm > 0 ? per_sm : 1) * sms;
+    chunks = (target + row_items - 1) / row_items;
+  }
+  chunks = std::max(chunks, (long long)(a->ncols + DC_MAX_LIST - 1) / DC_MAX_LIST);
+  chunks = std::min(chunks, (long long)a->ncols);
+  chunks = std::min(chunks, 65535LL);
+  if (chunks < 1) chunks = 1;
+  const int list_len = (int)((a->ncols + chunks - 1) / chunks);
+  if (list_len > DC_MAX_LIST) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = 2 * stage_bytes + (size_t)list_len * sizeof(uint32_t);
+  a->pieces = pieces;
+  kern<<<dim3((unsigned)row_items, (unsigned)chunks), threads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+template <bool kBoth>
+static int dispatch(ScanArgs* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->n_arrays < 1 || a->n_arrays > DC_MAX_ARRAYS) return (int)cudaErrorInvalidValue;
+  switch (a->kernel_atoms) {
+    case 1: return launch<1, DC_ROWS_FEW, 4, kBoth, false>(a, s);
+    case 2: return launch<2, DC_ROWS_FEW, 4, kBoth, false>(a, s);
+    case 3: return launch<3, DC_ROWS_MANY, 4, kBoth, false>(a, s);
+    case 4: return launch<4, DC_ROWS_MANY, 4, kBoth, false>(a, s);
+    case DC_MAX_ATOMS: return launch<DC_MAX_ATOMS, 2, 1, kBoth, true>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" {
 
 int dc_max_atoms() { return DC_MAX_ATOMS; }
 int dc_max_distinct() { return DC_MAX_DISTINCT; }
-int dc_args_size() { return (int)sizeof(DcArgs); }
+int dc_max_arrays() { return DC_MAX_ARRAYS; }
+int dc_tile() { return DC_TILE; }
+int dc_args_size() { return (int)sizeof(ScanArgs); }
 
 // Launch the fused both-role scan on `stream`; returns cudaGetLastError().
-int dc_pair_scan_launch(const DcArgs* args, void* stream) {
-  return dc_scan_launch<true>(args, stream);
-}
+int dc_pair_scan_launch(ScanArgs* args, void* stream) { return dispatch<true>(args, stream); }
 
-// Launch the role-t1 scan (count2, stat2 and op2/red2 unread).
-int dc_role_scan_launch(const DcArgs* args, void* stream) {
-  return dc_scan_launch<false>(args, stream);
-}
+// Launch the role-t1 scan (role t2's arrays unread).
+int dc_role_scan_launch(ScanArgs* args, void* stream) { return dispatch<false>(args, stream); }
 
 }  // extern "C"

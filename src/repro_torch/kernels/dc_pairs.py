@@ -27,7 +27,11 @@ Three pieces live here, beside each other:
   below +0.0.
 * host helpers shared by both: ``resolve_block_ids``, ``distinct_columns``,
   ``_block_bounds`` and ``_tile_possible`` (the per-tile pruning predicate
-  the kernel evaluates on the card).
+  the kernel evaluates on the card);
+* the kernel's keys, made and decoded by PyTorch passes around the launch:
+  ``partner_keys``, ``row_ranges`` (each atom as one range test on int32
+  keys), ``decode_stat`` and ``plan_scan`` (which key arrays a launch
+  stages, and which kernel instantiation it takes).
 
 The kernel library is built with ``nvcc`` at first use into
 ``repro_torch/_build/`` (git-ignored, ``kernels.build``) and loaded with
@@ -39,7 +43,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +53,8 @@ from repro_torch.kernels import build
 MAX_ATOMS = 8
 MAX_DISTINCT = 16
 _OP_CODE = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
-_RED_CODE = {"min": 0, "max": 1}
-_DTYPE_CODE = {
-    torch.int32: 0, torch.float32: 1, torch.int8: 2, torch.int16: 3,
-    torch.bfloat16: 4,
-}
+# the atom column dtypes the kernel takes
+_DTYPES = (torch.int32, torch.float32, torch.int8, torch.int16, torch.bfloat16)
 
 # launches of the CUDA kernel, counted by the wrapper at each launch
 LAUNCHES = {"dc_pair_scan": 0, "dc_role_scan": 0}
@@ -310,34 +311,194 @@ def dc_pair_scan_plain(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     return t1c, t1s, t2c, t2s
 
 
+# ------------------------------------------------------- the kernel's keys
+# The kernel tests every atom as one range check on int32 keys and reduces
+# every stat as a min of int32 keys.  These helpers make the keys from the
+# columns before the launch and decode the stat keys to the columns' dtypes
+# after it, as PyTorch passes on the tensors' own device; the CPU tests hold
+# them against ``_apply_op`` and ``extremum``.
+#
+# * An atom compares in int32 when both columns are integers, else in
+#   float32 (``_compare_operands``).  A partner's compare key is its widened
+#   int32, or the order key of its float32 value (``_order_key``: -0.0 one
+#   below +0.0).  For a row value x, the partners y with ``x op y`` are one
+#   interval of keys, which wraps around for ``!=``; ``row_ranges`` gives its
+#   start ``lo`` and ``span`` (its length - 1) so that the test is
+#   ``(uint32)(key - lo) <= span``.  -0.0 and +0.0 compare equal: their two
+#   keys form one class.  A row for which an atom holds for no partner (NaN
+#   under any op but ``!=``, +inf under ``<``, INT32_MAX under ``<`` on ints,
+#   ...) is dead: its role writes nothing and keeps count 0.
+# * A NaN partner's key is INT32_MIN, outside every interval but ``!=``'s.
+# * The stat of an atom reduces the partner's own column: its widened int32,
+#   or its float order key.  A max-reduced key is stored bit-inverted, which
+#   reverses the order, so the kernel always takes a min and a NaN partner
+#   (INT32_MIN) wins either way, as in XLA.  The interval of a max-reduced
+#   atom is inverted with its keys.
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+_U32 = 2**32
+_KEY_NEG_INF = -2139095041  # _order_key(-inf)
+_KEY_POS_INF = 2139095040  # _order_key(+inf)
+
+
+def atom_is_float(a_dtype: torch.dtype, b_dtype: torch.dtype) -> bool:
+    """An atom over these two column dtypes compares in float32."""
+    return a_dtype.is_floating_point or b_dtype.is_floating_point
+
+
+def partner_keys(col: torch.Tensor, as_float: bool, reduce: str) -> torch.Tensor:
+    """The stored int32 key of every value of ``col`` as a partner, for an
+    atom that compares in float32 (``as_float``) or int32 and whose stat
+    reduces with ``reduce``."""
+    if as_float:
+        f = col.to(torch.float32)
+        k = _order_key(f)
+    else:
+        k = col.to(torch.int32)
+    if reduce == "max":
+        k = torch.bitwise_not(k)
+    if as_float:
+        k = torch.where(f.isnan(), torch.full_like(k, _I32_MIN), k)
+    return k.contiguous()
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2**32."""
+    return (torch.remainder(v + 2**31, _U32) - 2**31).to(torch.int32)
+
+
+def row_ranges(x: torch.Tensor, as_float: bool, op: str, reduce: str):
+    """For every row value ``x``, the interval of stored partner keys
+    (``partner_keys(.., as_float, reduce)``) that satisfy ``x op y``:
+    ``(lo, span, dead)``, ``lo`` and ``span`` int32 (``span`` read as
+    uint32), ``dead`` where no partner can satisfy it."""
+    if as_float:
+        f = x.to(torch.float32)
+        k = _order_key(f).to(torch.int64)
+        zero = f == 0
+        cl_lo, cl_hi = torch.where(zero, -1, k), torch.where(zero, 0, k)
+        kmin, kmax = _KEY_NEG_INF, _KEY_POS_INF
+    else:
+        cl_lo = cl_hi = x.to(torch.int64)
+        kmin, kmax = _I32_MIN, _I32_MAX
+    if op == "<":
+        lo, hi = cl_hi + 1, kmax
+    elif op == "<=":
+        lo, hi = cl_lo, kmax
+    elif op == ">":
+        lo, hi = torch.full_like(cl_lo, kmin), cl_lo - 1
+    elif op == ">=":
+        lo, hi = torch.full_like(cl_lo, kmin), cl_hi
+    elif op == "==":
+        lo, hi = cl_lo, cl_hi
+    elif op == "!=":  # the complement of x's class, wrapping around
+        lo, hi = cl_hi + 1, cl_lo - 1 + _U32
+    else:
+        raise ValueError(op)
+    span = hi - lo
+    dead = span < 0
+    if as_float:
+        nan = f.isnan()
+        if op == "!=":  # NaN != y holds for every y
+            lo = torch.where(nan, 0, lo)
+            span = torch.where(nan, _U32 - 1, span)
+        else:
+            dead = dead | nan
+    span = torch.where(dead, 0, span)
+    if reduce == "max":  # keys stored as ~k = -1 - k
+        lo = -1 - lo - span
+    return _wrap32(lo), _wrap32(span), dead
+
+
+def in_range(keys: torch.Tensor, lo: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """The kernel's atom test ``(uint32)(key - lo) <= (uint32)span``,
+    broadcasting."""
+    d = torch.remainder(keys.to(torch.int64) - lo.to(torch.int64), _U32)
+    return d <= torch.remainder(span.to(torch.int64), _U32)
+
+
+def decode_stat(key: torch.Tensor, count: torch.Tensor, dtype: torch.dtype,
+                reduce: str) -> torch.Tensor:
+    """A stat in ``dtype`` from the kernel's min of stored keys: the reduce
+    identity where ``count`` is 0, NaN where a NaN partner won."""
+    k = key if reduce == "min" else torch.bitwise_not(key)
+    if dtype.is_floating_point:
+        val = torch.where(key == _I32_MIN, float("nan"), _from_key(k)).to(dtype)
+    else:
+        val = k.to(dtype)
+    return torch.where(count > 0, val, torch.full_like(val, identity(dtype, reduce)))
+
+
+class ScanPlan(NamedTuple):
+    """Which key arrays a launch stages and which each role's atom reads."""
+
+    arrays: Tuple[Tuple[int, bool, str], ...]  # (distinct column, as_float, reduce)
+    cmp_arr: Tuple[Tuple[int, ...], ...]  # per role and atom: the compared array
+    stat_arr: Tuple[Tuple[int, ...], ...]  # per role and atom: the reduced array
+    kernel_atoms: int  # 1-4, or MAX_ATOMS: the generic path
+
+
+def plan_scan(dtypes: Sequence[torch.dtype], roles) -> ScanPlan:
+    """Plan the key arrays of a scan over distinct columns of ``dtypes``;
+    ``roles`` holds ``(row_idx, par_idx, ops, reduces)`` per role.  An atom
+    whose partner column is an integer but which compares in float32
+    reduces another array than it compares (the stat keeps the exact
+    integer); such a scan, or one of more than 4 atoms, takes the generic
+    kernel."""
+    arrays: dict = {}
+    cmp_arr, stat_arr = [], []
+    split = False
+    for row_idx, par_idx, _, reduces in roles:
+        cmp, stat = [], []
+        for x, p, red in zip(row_idx, par_idx, reduces):
+            cmp_spec = (p, atom_is_float(dtypes[x], dtypes[p]), red)
+            stat_spec = (p, dtypes[p].is_floating_point, red)
+            split = split or cmp_spec != stat_spec
+            cmp.append(arrays.setdefault(cmp_spec, len(arrays)))
+            stat.append(arrays.setdefault(stat_spec, len(arrays)))
+        cmp_arr.append(tuple(cmp))
+        stat_arr.append(tuple(stat))
+    n_atoms = len(cmp_arr[0])
+    kernel_atoms = n_atoms if n_atoms <= 4 and not split else MAX_ATOMS
+    return ScanPlan(tuple(arrays), tuple(cmp_arr), tuple(stat_arr), kernel_atoms)
+
+
 # ------------------------------------------------------------- CUDA kernel
-class _DcArgs(ctypes.Structure):
-    """Mirror of ``struct DcArgs`` in ``csrc/dc_pairs.cu``."""
+MAX_ARRAYS = 32
+_TILE = 256  # partners a shared-memory tile (csrc/dc_pairs.cu DC_TILE)
+
+
+class _ScanArgs(ctypes.Structure):
+    """Mirror of ``struct ScanArgs`` in ``csrc/dc_pairs.cu``."""
 
     _fields_ = [
-        ("cols", ctypes.c_void_p * MAX_DISTINCT),
-        ("stat1", ctypes.c_void_p * MAX_ATOMS),
-        ("stat2", ctypes.c_void_p * MAX_ATOMS),
+        ("keys", ctypes.c_void_p * MAX_ARRAYS),
+        ("valid", ctypes.c_void_p),
+        ("full", ctypes.c_void_p),
+        ("lo", ctypes.c_void_p),
+        ("span", ctypes.c_void_p),
+        ("alive", ctypes.c_void_p),
         ("bounds", ctypes.c_void_p),
-        ("row_scope", ctypes.c_void_p),
-        ("col_scope", ctypes.c_void_p),
         ("rid", ctypes.c_void_p),
         ("cid", ctypes.c_void_p),
-        ("count1", ctypes.c_void_p),
-        ("count2", ctypes.c_void_p),
-        ("col_dtype", ctypes.c_int32 * MAX_DISTINCT),
-        ("op1", ctypes.c_int32 * MAX_ATOMS),
-        ("op2", ctypes.c_int32 * MAX_ATOMS),
-        ("red1", ctypes.c_int32 * MAX_ATOMS),
-        ("red2", ctypes.c_int32 * MAX_ATOMS),
-        ("l_idx", ctypes.c_int32 * MAX_ATOMS),
-        ("r_idx", ctypes.c_int32 * MAX_ATOMS),
+        ("count", ctypes.c_void_p),
+        ("stat", ctypes.c_void_p),
+        ("cmp_arr", ctypes.c_int32 * (2 * MAX_ATOMS)),
+        ("stat_arr", ctypes.c_int32 * (2 * MAX_ATOMS)),
+        ("op", ctypes.c_int32 * (2 * MAX_ATOMS)),
+        ("row_col", ctypes.c_int32 * (2 * MAX_ATOMS)),
+        ("par_col", ctypes.c_int32 * (2 * MAX_ATOMS)),
+        ("col_float", ctypes.c_int32 * MAX_DISTINCT),
+        ("n_arrays", ctypes.c_int32),
         ("nrows", ctypes.c_int32),
         ("ncols", ctypes.c_int32),
         ("nb", ctypes.c_int32),
         ("block", ctypes.c_int32),
         ("n_distinct", ctypes.c_int32),
         ("n_atoms", ctypes.c_int32),
+        ("kernel_atoms", ctypes.c_int32),
+        ("chunks", ctypes.c_int32),
+        ("pieces", ctypes.c_int32),
     ]
 
 
@@ -353,13 +514,15 @@ def _library():
             for fn in (lib.dc_pair_scan_launch, lib.dc_role_scan_launch):
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.dc_args_size.restype = ctypes.c_int
-            for fn in (lib.dc_max_atoms, lib.dc_max_distinct):
+            for fn in (lib.dc_args_size, lib.dc_max_atoms, lib.dc_max_distinct,
+                       lib.dc_max_arrays, lib.dc_tile):
                 fn.restype = ctypes.c_int
             if (
-                lib.dc_args_size() != ctypes.sizeof(_DcArgs)
+                lib.dc_args_size() != ctypes.sizeof(_ScanArgs)
                 or lib.dc_max_atoms() != MAX_ATOMS
                 or lib.dc_max_distinct() != MAX_DISTINCT
+                or lib.dc_max_arrays() != MAX_ARRAYS
+                or lib.dc_tile() != _TILE
             ):
                 raise RuntimeError("csrc/dc_pairs.cu and its ctypes mirror disagree")
             _lib = lib
@@ -381,12 +544,33 @@ def block_bounds(distinct, row_scope, col_scope, nb, block) -> torch.Tensor:
     return torch.stack(words).contiguous()
 
 
-def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
-               t1_reduces, t2_reduces, block, rid, cid):
-    """Launch the kernel over the worklist ``rid x cid``: both roles, or role
-    t1 alone when ``flipped`` is None (then the t2 outputs are None)."""
-    both = flipped is not None
-    name = "dc_pair_scan" if both else "dc_role_scan"
+class ScanInputs(NamedTuple):
+    """Everything a launch reads and writes, prepared on the columns'
+    device: ``count`` zeroed and ``stat`` at INT32_MAX for the kernel to
+    merge into."""
+
+    n: int
+    nb: int
+    block: int
+    cols: List[torch.Tensor]  # distinct atom columns, padded to nb * block
+    roles: list  # (row_idx, par_idx, ops, reduces) per role
+    plan: ScanPlan
+    keys: List[torch.Tensor]  # (npad,) int32 per plan array
+    valid: torch.Tensor  # (npad,) int32 col scope
+    full: torch.Tensor  # (nb, tiles a block) uint8: every partner of the tile in scope
+    lo: torch.Tensor  # (roles, kernel_atoms, npad) int32
+    span: torch.Tensor  # (roles, kernel_atoms, npad) int32
+    alive: torch.Tensor  # (roles, npad) uint8
+    bounds: torch.Tensor  # (4, n_distinct, nb) block_bounds
+    count: torch.Tensor  # (roles, npad) int32
+    stat: torch.Tensor  # (roles, kernel_atoms, npad) int32
+
+
+def prepare_scan(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+                 t1_reduces, t2_reduces, block) -> ScanInputs:
+    """The kernel's inputs: both roles, or role t1 alone when ``flipped`` is
+    None.  Raises on what the kernel does not take."""
+    name = "dc_role_scan" if flipped is None else "dc_pair_scan"
     n = l_cols[0].shape[0]
     dev = row_scope.device
     n_atoms = len(ops)
@@ -401,7 +585,7 @@ def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     if not 1 <= block <= 1024:
         raise ValueError(f"block {block} outside the kernel's [1, 1024]")
     for c in distinct:
-        if c.device != dev or c.dtype not in _DTYPE_CODE or c.dim() != 1:
+        if c.device != dev or c.dtype not in _DTYPES or c.dim() != 1:
             raise ValueError(f"unsupported atom column {c.dtype} on {c.device}")
     pad = npad - n
 
@@ -412,44 +596,82 @@ def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     cols = [padded(c) for c in distinct]
     rs = padded(row_scope.to(torch.bool))
     cs = padded(col_scope.to(torch.bool))
-    bounds = block_bounds(cols, rs, cs, nb, block)
+    roles = [(l_idx, r_idx, ops, t1_reduces)]
+    if flipped is not None:
+        roles.append((r_idx, l_idx, flipped, t2_reduces))
+    plan = plan_scan([c.dtype for c in cols], roles)
+    kn, nr = plan.kernel_atoms, len(roles)
+    lo = torch.zeros((nr, kn, npad), dtype=torch.int32, device=dev)
+    span = torch.full((nr, kn, npad), -1, dtype=torch.int32, device=dev)  # unused atoms hold
+    alive = rs.repeat(nr, 1)
+    for r, (row_idx, par_idx, role_ops, reduces) in enumerate(roles):
+        for a in range(n_atoms):
+            x = cols[row_idx[a]]
+            fl = atom_is_float(x.dtype, cols[par_idx[a]].dtype)
+            lo[r, a], span[r, a], dead = row_ranges(x, fl, role_ops[a], reduces[a])
+            alive[r] &= ~dead
+    return ScanInputs(
+        n=n, nb=nb, block=block, cols=cols, roles=roles, plan=plan,
+        keys=[partner_keys(cols[d], fl, red) for d, fl, red in plan.arrays],
+        valid=cs.to(torch.int32), full=_full_tiles(cs, nb, block), lo=lo, span=span,
+        alive=alive.to(torch.uint8), bounds=block_bounds(cols, rs, cs, nb, block),
+        count=torch.zeros((nr, npad), dtype=torch.int32, device=dev),
+        stat=torch.full((nr, kn, npad), _I32_MAX, dtype=torch.int32, device=dev),
+    )
+
+
+def _full_tiles(cs: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """Per col block and kernel tile of ``_TILE`` partners, whether every
+    partner lies in the col scope (the kernel then skips the scope test)."""
+    nsub = -(-block // _TILE)
+    per = torch.nn.functional.pad(cs.reshape(nb, block), (0, nsub * _TILE - block), value=True)
+    return per.reshape(nb, nsub, _TILE).all(dim=2).to(torch.uint8).contiguous()
+
+
+def finish_scan(inp: ScanInputs):
+    """Decode the merged counts and stat keys: ``(count, stats)`` per role,
+    flattened."""
+    out = []
+    for r, (_, par_idx, _, reduces) in enumerate(inp.roles):
+        c = inp.count[r, :inp.n]
+        out += [c, [decode_stat(inp.stat[r, a, :inp.n], c, inp.cols[par_idx[a]].dtype, red)
+                    for a, red in enumerate(reduces)]]
+    return tuple(out)
+
+
+def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+               t1_reduces, t2_reduces, block, rid, cid, chunks=None):
+    """Launch the kernel over the worklist ``rid x cid``: both roles, or role
+    t1 alone when ``flipped`` is None.  ``chunks`` fixes the number of col
+    chunks, which changes no bit of the result (default: fill the card)."""
+    inp = prepare_scan(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+                       t1_reduces, t2_reduces, block)
+    both = flipped is not None
+    name = "dc_pair_scan" if both else "dc_role_scan"
+    dev = row_scope.device
+    plan, n_atoms = inp.plan, len(ops)
     rid_t = torch.as_tensor(rid, dtype=torch.int32, device=dev)
     cid_t = torch.as_tensor(cid, dtype=torch.int32, device=dev)
-    count2 = stat2 = None
-    if rid.size == nb:
-        count1 = torch.empty((npad,), dtype=torch.int32, device=dev)
-        stat1 = [torch.empty((npad,), dtype=c.dtype, device=dev) for c in r_cols]
-        if both:
-            count2 = torch.empty((npad,), dtype=torch.int32, device=dev)
-            stat2 = [torch.empty((npad,), dtype=c.dtype, device=dev) for c in l_cols]
-    else:  # rows outside the worklist keep count 0 and the identity
-        count1, stat1 = _empty_role(npad, r_cols, t1_reduces, dev)
-        if both:
-            count2, stat2 = _empty_role(npad, l_cols, t2_reduces, dev)
-
-    args = _DcArgs()
-    for i, c in enumerate(cols):
-        args.cols[i] = c.data_ptr()
-        args.col_dtype[i] = _DTYPE_CODE[c.dtype]
-    for i in range(n_atoms):
-        args.stat1[i] = stat1[i].data_ptr()
-        args.op1[i] = _OP_CODE[ops[i]]
-        args.red1[i] = _RED_CODE[t1_reduces[i]]
-        args.l_idx[i] = l_idx[i]
-        args.r_idx[i] = r_idx[i]
-        if both:
-            args.stat2[i] = stat2[i].data_ptr()
-            args.op2[i] = _OP_CODE[flipped[i]]
-            args.red2[i] = _RED_CODE[t2_reduces[i]]
-    args.bounds = bounds.data_ptr()
-    args.row_scope = rs.data_ptr()
-    args.col_scope = cs.data_ptr()
-    args.rid = rid_t.data_ptr()
-    args.cid = cid_t.data_ptr()
-    args.count1 = count1.data_ptr()
-    args.count2 = count2.data_ptr() if both else None
-    args.nrows, args.ncols, args.nb, args.block = len(rid), len(cid), nb, block
-    args.n_distinct, args.n_atoms = len(cols), n_atoms
+    args = _ScanArgs()
+    for i, k in enumerate(inp.keys):
+        args.keys[i] = k.data_ptr()
+    for i, c in enumerate(inp.cols):
+        args.col_float[i] = int(c.dtype.is_floating_point)
+    for r, (row_idx, par_idx, role_ops, _) in enumerate(inp.roles):
+        for a in range(n_atoms):  # the generic kernel's unused atoms read array 0
+            at = r * MAX_ATOMS + a
+            args.cmp_arr[at], args.stat_arr[at] = plan.cmp_arr[r][a], plan.stat_arr[r][a]
+            args.op[at] = _OP_CODE[role_ops[a]]
+            args.row_col[at], args.par_col[at] = row_idx[a], par_idx[a]
+    args.valid, args.full = inp.valid.data_ptr(), inp.full.data_ptr()
+    args.lo, args.span = inp.lo.data_ptr(), inp.span.data_ptr()
+    args.alive, args.bounds = inp.alive.data_ptr(), inp.bounds.data_ptr()
+    args.rid, args.cid = rid_t.data_ptr(), cid_t.data_ptr()
+    args.count, args.stat = inp.count.data_ptr(), inp.stat.data_ptr()
+    args.n_arrays, args.nrows, args.ncols = len(inp.keys), len(rid), len(cid)
+    args.nb, args.block, args.n_distinct = inp.nb, block, len(inp.cols)
+    args.n_atoms, args.kernel_atoms = n_atoms, plan.kernel_atoms
+    args.chunks = int(chunks or 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _library()
     launch = lib.dc_pair_scan_launch if both else lib.dc_role_scan_launch
@@ -457,10 +679,7 @@ def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    out1 = (count1[:n], [s[:n] for s in stat1])
-    if not both:
-        return out1
-    return out1 + (count2[:n], [s[:n] for s in stat2])
+    return finish_scan(inp)
 
 
 def _use_plain(row_scope: torch.Tensor, name: str) -> bool:

@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA ``dc_pair_scan``, ``dc_role_scan``,
+"""The port on the card: the CUDA ``dc_pair_scan``, ``dc_role_scan`` (also
+over every case of ``kernels/dc_scan_check.py``),
 ``semijoin`` (a hash build and probe) and the two flash-attention kernels
 (the tensor-core ``wgmma`` one for bf16 at head dims 64 and 128, the
 CUDA-core one for the rest) against their plain PyTorch versions, the
@@ -31,6 +32,7 @@ from repro_torch.data.generators import (
     suppliers,
 )
 from repro_torch.kernels import dc_pairs
+from repro_torch.kernels import dc_scan_check as dsc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import semijoin as sj
@@ -153,6 +155,30 @@ def test_role_scan_kernel_nan_and_signed_zeros(card):
         assert torch.equal(got_c, want_c)
         for g, w in zip(got_s, want_s):
             assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("both", [True, False], ids=["pair", "role"])
+@pytest.mark.parametrize("case", dsc.CASES, ids=[c.name for c in dsc.CASES])
+def test_scan_kernel_check_case(card, case, both):
+    """Every case of ``kernels/dc_scan_check.py``: each specialised atom
+    count and the generic path (8 atoms over 16 distinct columns among
+    them), blocks 1, 64, 100 and 1,024, a col list that 7 chunks do not
+    divide evenly, a one-row-block strip; one launch, bit for bit."""
+    name = "dc_pair_scan" if both else "dc_role_scan"
+    before = dc_pairs.LAUNCHES[name]
+    err, _, _ = dsc.check_case(case, card, both)
+    assert err is None, err
+    assert dc_pairs.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("both", [True, False], ids=["pair", "role"])
+def test_scan_kernel_same_bits_every_launch_and_chunking(card, both):
+    """Chunks merge with integer atomics, which commute: two launches, and
+    launches over 1 and 13 col chunks, give the same bits."""
+    inp = dsc.timing_inputs(card)
+    first = dsc.scan(inp, both)
+    for kw in ({}, {"chunks": 1}, {"chunks": 13}):
+        assert dsc.same_bits(dsc.scan(inp, both, **kw), first) is None, kw
 
 
 @pytest.mark.parametrize("n,m,block", [(5, 7, 64), (64, 64, 256), (100, 257, 64),
