@@ -17,7 +17,11 @@ Phases, each of which must pass or the script exits non-zero:
    specialised atom count and the generic path up to 8 atoms over 16
    columns, integer extremes, int32 above 2**24 in a float atom, blocks 1,
    64, 100 and 1,024, 7 col chunks over 50 col blocks, a one-row-block
-   strip); two launches of the timing case and a one-chunk launch give the
+   strip, and the worklists of background increments and ingest deltas:
+   1, 2 and 16 one-block strips x every col block of a grid that has just
+   doubled, with pad values past its valid prefix, an append's fresh rows
+   starting off a block boundary as the col range, and one partly fresh
+   col block alone); two launches of the timing case and a one-chunk launch give the
    same bits; then its time (the call, and the kernel alone by
    ``torch.profiler``), the plain version's time and its bound at
    n = 131,072 on the full worklist;
@@ -64,7 +68,30 @@ Phases, each of which must pass or the script exits non-zero:
     (the FD guarantee), then on the DC workload of phase 8 (one pair-scan
     launch), the cleaned relation bit-identical to a ``clean_all``
     through the plain version;
-11. qwen3-4b at its published width (36 layers, d_model 2560, vocab
+11. the query service on a serial schedule driven from this thread: the
+    launcher's hospital table (FD ``zc``, DC ``bq``) at 8,000 rows, 12
+    queries, two ``cleaner.drain(max_increments=2)``, two appends of 1,024
+    rows (the first off a block boundary, growing the capacity from 8,000
+    to 16,384), 12 more queries and a full drain; on the card, on the card
+    under the pair scan's plain version, and on the CPU, every mask,
+    overlay, checked bit, step report, ledger entry and snapshot counter
+    equal;
+12. streaming ingest against stop-the-world rebuilds at scale, the gates of
+    ``benchmarks/serve_ingest.py`` rebuilt here: FD zip -> city and DC
+    price <, disc >, 131,072 seed rows warm, then 4 appends of 16,384 rows
+    (the first doubles the capacity to 262,144); after each, (a) the
+    probes' answers and the whole overlay equal a fresh ``Daisy``'s over
+    the same rows, (b) the round's DC pairs are exactly checked x new +
+    new x total, (c) no checked strip went cold; then one more append and
+    ``torch.profiler``'s time of the pair scan on its ingest delta and on
+    a one-strip increment;
+13. the port's query-service launcher (``launch/serve.py``'s
+    ``run_queries``) at 131,072 + 4 x 8,192 rows: 8 sessions, 400
+    requests, the background cleaner (16 strips an increment) and QoS, on
+    a serving and a cleaner thread, under ``torch.profiler`` for the
+    device's busy share; every ticket answered, no error, and no cold row
+    after a final drain;
+14. qwen3-4b at its published width (36 layers, d_model 2560, vocab
    151,936) with weights from a seed: in float32 compute, prefill(256) then
    decode(token 256) against forward(257) at the last position, and
    prefill(256) and forward(257), every position, through the CUDA-core
@@ -77,11 +104,12 @@ Phases, each of which must pass or the script exits non-zero:
    plain version at bf16 ``atol=3e-2``; then ``torch.profiler``'s device
    time of that prefill and of four more decode steps on the main run's
    cache;
-12. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
+15. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
    8-16 prompt tokens, 16 new tokens each, through 4 slots.
 
-Each main path (FD, DC, join, offline, the LM prefill and decode, the
-engine) runs with every kernel's launch count at 0, read just after; the
+Each main path (FD, DC, join, offline, ingest, service, the LM prefill and
+decode, the engine) runs with every kernel's launch count at 0, read just
+after; the
 counts must be as ``PATH_LAUNCHES`` says, and the role scan, the semijoin
 and the CUDA-core flash kernel lie on none of them.  The line before the
 last is a JSON object describing each kernel, its launches summed over
@@ -142,6 +170,13 @@ SEMIJOIN_KEYS = SF1_ORDERKEYS // N_QUERIES
 # join queries: 100 suppkeys each; the capacity holds the largest answer
 # (the region group-by joins every lineorder row)
 JOIN_CAPACITY = 1 << 24
+# the query service's phases: the serial schedule (the launcher's hospital
+# table, grown by two appends from 8,000 rows of capacity to 16,384), the
+# serving-ingest regime at scale (strips and appends of 16,384 rows), and
+# the launcher itself with its background cleaner, streamed ingest and QoS
+SERIAL_ROWS, SERIAL_CHUNK, SERIAL_QUERIES = 8_000, 1_024, 12
+INGEST_ROWS, INGEST_CHUNK, INGEST_APPENDS = 131_072, 16_384, 4
+SERVICE_ROWS, SERVICE_CHUNK, SERVICE_REQUESTS = 131_072, 8_192, 400
 # Launches each main path must make (None: at least one); a kernel not
 # named launches none there.  dc_role_scan and semijoin lie on no path:
 # only their kernels.ops entry points call them.  The LM prefill's 36
@@ -149,6 +184,7 @@ JOIN_CAPACITY = 1 << 24
 # CUDA-core flash kernel (float32, other head dims) lies on no path.
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
+    "ingest": {"dc_pair_scan": None}, "service": {"dc_pair_scan": None},
     "lm": {"flash_attention_wgmma": 36}, "engine": {},
 }
 
@@ -1242,6 +1278,369 @@ def same_relation(a, b, what: str) -> None:
 
 
 # ------------------------------------------------------------------ phase 11
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serial_schedule(dev):
+    """The query service on a fixed schedule driven from this thread: a
+    burst of queries, two ``cleaner.drain(max_increments=2)``, two appends
+    (the first off a block boundary and growing the table), another burst
+    and a full drain, over the launcher's hospital table (FD ``zc``, DC
+    ``bq``).  Returns everything a client and the engine show, as host
+    values."""
+    import numpy as np
+
+    from repro_torch.core.executor import Daisy, DaisyConfig
+    from repro_torch.core.relation import make_relation
+    from repro_torch.launch.serve import ServeOptions, query_pool, workload_table
+    from repro_torch.service import BackgroundCleaner, QoSPolicy, QueryServer
+    from repro_torch.testing import engine_state
+
+    per_burst = SERIAL_QUERIES
+    opts = ServeOptions(rows=SERIAL_ROWS, ingest_chunks=2, ingest_rows=SERIAL_CHUNK, device=dev)
+    seed_rows, chunks, rules = workload_table(opts)
+    rel = make_relation(seed_rows, overlay=["zip", "city", "beds", "quality"], k=8,
+                        rules=["zc", "bq"], device=dev)
+    daisy = Daisy({"h": rel}, {"h": rules}, DaisyConfig(use_cost_model=False), device=dev)
+    server = QueryServer(daisy, max_batch=8, qos=QoSPolicy())
+    cleaner = BackgroundCleaner(daisy, server=server, increment_rows=opts.fd_increment_rows,
+                                increment_strips=1)
+    pool = query_pool(opts)
+    # a few hot zips first (so the DC scope stays cold for the increments),
+    # then the DC view and the group-by too, in a seeded order
+    picks = [pool[i] for i in (0, 1, 2, 3, len(pool) - 1, len(pool) - 2)]
+    rng = np.random.default_rng(0)
+    order = np.concatenate([rng.integers(0, 4, per_burst),
+                            rng.integers(0, len(picks), per_burst)])
+    sessions = [server.open_session(f"user{i}", max_inflight=4 * per_burst) for i in range(4)]
+    out = {"tickets": [], "increments": []}
+
+    def burst(idx):
+        ts = [server.submit(sessions[i % 4], picks[q]) for i, q in enumerate(idx)]
+        server.drain()
+        for t in ts:
+            rep = t.result.report
+            out["tickets"].append((t.cached, t.shed, t.staleness, t.result.mask.cpu().numpy(),
+                                   [s.asdict() for s in rep.steps], rep.result_size))
+
+    burst(order[:per_burst])
+    for _ in range(2):
+        out["increments"].append(cleaner.drain(max_increments=2))
+    ingests = []
+    for rows_c in chunks:
+        t = server.ingest("h", rows_c)
+        server.drain()
+        ingests.append(t.result.asdict())
+    out["ingests"] = ingests
+    burst(order[per_burst:])
+    out["increments"].append(cleaner.drain())
+    sync(dev)
+    snap = server.snapshot()
+    out["snapshot"] = {k: v for k, v in snap.items()
+                       if k not in ("elapsed_s", "queries_per_sec", "idle_fraction", "latency")}
+    out["snapshot"]["background"].pop("busy_s")
+    out["state"] = engine_state(daisy)
+    out["cold"] = (daisy.cold_count("h", "zc"), daisy.cold_count("h", "bq"))
+    return out
+
+
+def same_schedule(a, b, what: str) -> None:
+    import numpy as np
+
+    from repro_torch.testing import state_differences
+
+    if len(a["tickets"]) != len(b["tickets"]):
+        fail(f"{what}: {len(a['tickets'])} tickets against {len(b['tickets'])}")
+    for i, (x, y) in enumerate(zip(a["tickets"], b["tickets"])):
+        if x[:3] != y[:3] or x[4:] != y[4:] or not np.array_equal(x[3], y[3]):
+            fail(f"{what}: ticket {i} differs")
+    for key in ("increments", "ingests", "snapshot", "cold"):
+        if a[key] != b[key]:
+            fail(f"{what}: {key} differs: {a[key]} != {b[key]}")
+    bad = state_differences(a["state"], b["state"])
+    if bad:
+        fail(f"{what}: engine state differs at {bad[:8]}")
+
+
+def serial_phase(dev):
+    """Phase 11: the serial schedule on the card, on the card under the
+    pair scan's plain version, and on the CPU: everything equal."""
+    from repro_torch.kernels import dc_pairs
+
+    t0 = time.perf_counter()
+    before = dc_pairs.LAUNCHES["dc_pair_scan"]
+    card = serial_schedule(dev)
+    launches = dc_pairs.LAUNCHES["dc_pair_scan"] - before
+    t_card = time.perf_counter() - t0
+    with dc_pairs.plain_version():
+        plain = serial_schedule(dev)
+    if dc_pairs.LAUNCHES["dc_pair_scan"] - before != launches:
+        fail("the plain-version run of the serial schedule launched the kernel")
+    cpu = serial_schedule("cpu")
+    same_schedule(card, plain, "serial schedule, kernel vs plain version")
+    same_schedule(card, cpu, "serial schedule, cuda vs cpu")
+    if launches <= 0 or card["cold"] != (0, 0):
+        fail(f"serial schedule: {launches} launches, cold rows {card['cold']} after the drain")
+    ing = card["ingests"]
+    if [r["start"] for r in ing] != [SERIAL_ROWS, SERIAL_ROWS + SERIAL_CHUNK] or \
+            [r["capacity"] for r in ing] != [16_384, 16_384] or not ing[0]["grown"]:
+        fail(f"serial schedule: unexpected appends {ing}")
+    modes = sorted({s["mode"] for t in card["tickets"] for s in t[4]})
+    snap = card["snapshot"]
+    log(f"service serial schedule {SERIAL_ROWS} + 2 x {SERIAL_CHUNK} rows: cuda == cuda plain "
+        f"== cpu on {len(card['tickets'])} tickets, {len(ing)} appends (capacity "
+        f"{ing[0]['capacity_before']} -> {ing[0]['capacity']}), increments {card['increments']}; "
+        f"masks, overlays, checked bits, step reports, ledger and snapshot counters equal; "
+        f"{launches} dc_pair_scan launches; step modes {modes}; executions "
+        f"{snap['executions']}, cache hits {snap['cache_hits']}; the cuda run {t_card:.3f} s")
+
+
+# ------------------------------------------------------------------ phase 12
+INGEST_OVERLAY = ["zip", "city", "price", "disc"]
+
+
+def ingest_data(total, groups, seed=23):
+    """The serving-ingest regime's rows (``benchmarks/serve_ingest.py``):
+    cluster-disjoint zip -> city, and a noisy-monotone price/disc pair."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    zipc = rng.integers(0, groups, total).astype(np.int32)
+    city = (zipc * 8 + rng.integers(0, 4, total)).astype(np.int32)
+    price = rng.integers(0, 100, total).astype(np.int32)
+    disc = (100 - price + rng.integers(-5, 5, total)).astype(np.int32)
+    return {"zip": zipc, "city": city, "price": price, "disc": disc}
+
+
+def ingest_daisy(data, dev):
+    from repro_torch.core.constraints import DC, FD, Atom
+    from repro_torch.core.executor import Daisy, DaisyConfig
+    from repro_torch.core.relation import make_relation
+
+    rules = [FD("zc", "zip", "city"),
+             DC("pd", [Atom("price", "<", "price"), Atom("disc", ">", "disc")])]
+    rel = make_relation(data, overlay=INGEST_OVERLAY, k=8, rules=["zc", "pd"], device=dev)
+    cfg = DaisyConfig(use_cost_model=False, accuracy_threshold=2.0, dc_block=256,
+                      strip_rows=INGEST_CHUNK)
+    return Daisy({"h": rel}, {"h": rules}, cfg, device=dev)
+
+
+def ingest_probes():
+    from repro_torch.core.operators import GroupBySpec, Pred, Query
+
+    return [Query("h", groupby=GroupBySpec(keys=("city",), agg="count")),
+            Query("h", preds=(Pred("price", ">=", 0),))]
+
+
+def canonical_overlay(daisy, n_rows):
+    """Per attribute, each row's live candidates (value, kind, count) sorted
+    within the row, over the valid prefix: a capacity- and slot-order-free
+    signature of the overlay, as tensors on the device."""
+    import torch
+
+    rel = daisy.db["h"]
+    out = {}
+    for attr in INGEST_OVERLAY:
+        v = rel.cand[attr][:n_rows].to(torch.float64)
+        k = rel.ckind[attr][:n_rows].to(torch.float64)
+        c = rel.ccount[attr][:n_rows].to(torch.float64)
+        live = c > 1e-9
+        cols = [torch.where(live, x, float("inf")) for x in (v, k, c)]
+        for j in (2, 1, 0):  # stable sorts, least significant key first
+            idx = torch.sort(cols[j], dim=1, stable=True).indices
+            cols = [torch.gather(x, 1, idx) for x in cols]
+        out[attr] = tuple(cols)
+    return out
+
+
+def probe_answers(results, n_rows):
+    """The probes' answers as host arrays: the group-by's live groups (keys
+    and expected counts) and the DC probe's mask over the valid prefix."""
+    groups = results[0].groups
+    live = groups["count"] > 0
+    return (groups["key_city"][live].cpu().numpy(), groups["count"][live].cpu().numpy(),
+            results[1].mask[:n_rows].cpu().numpy())
+
+
+def same_probes(got, want, what):
+    import numpy as np
+
+    if not np.array_equal(got[0], want[0]) or not np.array_equal(got[2], want[2]):
+        fail(f"{what}: answers differ from the rebuild's")
+    # the card sums the expected counts with atomics, in no fixed order
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, err_msg=what)
+
+
+def dc_pairs_of(results):
+    return sum(s.detect_pairs for r in results for s in r.report.steps if s.rule == "pd")
+
+
+def ingest_phase(dev):
+    """Phase 12: streaming ingest against stop-the-world rebuilds at scale,
+    with the serving-ingest benchmark's gates, then the pair scan's own
+    time on an ingest delta and on a one-strip increment."""
+    import torch
+
+    from repro_torch.service import QueryServer
+
+    n0, chunk = INGEST_ROWS, INGEST_CHUNK
+    total = n0 + (INGEST_APPENDS + 1) * chunk
+    data = ingest_data(total, groups=max(n0 // 16, 4))
+
+    def rows(lo, hi):
+        return {k: v[lo:hi] for k, v in data.items()}
+
+    t0 = time.perf_counter()
+    daisy = ingest_daisy(rows(0, n0), dev)
+    server = QueryServer(daisy, max_batch=8)
+    session = server.open_session("probe")
+
+    def probe_round():
+        ts = [server.submit(session, q) for q in ingest_probes()]
+        server.drain()
+        return [t.result for t in ts]
+
+    warm = probe_round()
+    if daisy.cold_count("h", "pd") or daisy.cold_count("h", "zc"):
+        fail("ingest phase: the seed instance is not warm after the probes")
+    sync(dev)
+    log(f"ingest phase: {n0} seed rows warm in {time.perf_counter() - t0:.3f} s "
+        f"(DC pairs {dc_pairs_of(warm)})")
+    n_prev = n0
+    for c in range(INGEST_APPENDS):
+        lo, hi = n0 + c * chunk, n0 + (c + 1) * chunk
+        scope = daisy.ledger.scope("h", "pd")
+        checked_before = set(range(scope.n_strips)) - {int(s) for s in scope.cold_strips()}
+        t0 = time.perf_counter()
+        ticket = server.ingest("h", rows(lo, hi))
+        results = probe_round()
+        sync(dev)
+        t_round = time.perf_counter() - t0
+        rep = ticket.result
+        if rep.rows != chunk or rep.start != lo:
+            fail(f"ingest round {c}: appended {rep.rows} rows at {rep.start}")
+        t0 = time.perf_counter()
+        rebuilt = ingest_daisy(rows(0, hi), dev)
+        reb = [rebuilt.execute(q) for q in ingest_probes()]
+        sync(dev)
+        t_rebuild = time.perf_counter() - t0
+        # (a) answers and the whole overlay equal the rebuild's
+        same_probes(probe_answers(results, hi), probe_answers(reb, hi), f"ingest round {c}")
+        got, want = canonical_overlay(daisy, hi), canonical_overlay(rebuilt, hi)
+        for attr in INGEST_OVERLAY:
+            if not all(torch.equal(x, y) for x, y in zip(got[attr], want[attr])):
+                fail(f"ingest round {c}: the overlay of {attr!r} differs from the rebuild's")
+        for r in ("zc", "pd"):
+            if not torch.equal(daisy.db["h"].checked[r][:hi], rebuilt.db["h"].checked[r][:hi]):
+                fail(f"ingest round {c}: checked bits of {r} differ from the rebuild's")
+        # (b) the round's DC pairs are exactly checked x new + new x total
+        pairs, reb_pairs = dc_pairs_of(results), dc_pairs_of(reb)
+        if pairs != n_prev * chunk + chunk * hi or pairs >= reb_pairs:
+            fail(f"ingest round {c}: DC pairs {pairs}, expected {n_prev} x {chunk} + "
+                 f"{chunk} x {hi}, rebuild {reb_pairs}")
+        # (c) every strip checked before the append is still checked
+        scope = daisy.ledger.scope("h", "pd")
+        cold_now = {int(s) for s in scope.cold_strips()}
+        if checked_before & cold_now or cold_now or scope.fresh:
+            fail(f"ingest round {c}: strips {sorted(cold_now)} cold, fresh {scope.fresh}")
+        modes = [s.mode for r in results for s in r.report.steps]
+        log(f"ingest round {c}: {hi} rows (capacity {rep.capacity_before} -> {rep.capacity}); "
+            f"streamed == rebuilt (answers, overlay, checked bits); DC pairs {pairs} = "
+            f"{n_prev} x {chunk} + {chunk} x {hi} against the rebuild's {reb_pairs}; "
+            f"append + probes {t_round:.3f} s, rebuild {t_rebuild:.3f} s; modes {modes}")
+        n_prev = hi
+        del rebuilt, reb
+    # the scan's own time: one more append, then one increment that drains
+    # its delta (checked x fresh) and cleans one strip (fresh x all)
+    lo, hi = n_prev, n_prev + chunk
+    server.ingest("h", rows(lo, hi))
+    server.drain()
+    kernel_ms, wall_ms = increment_profile(daisy)
+    if len(kernel_ms) != 2:
+        fail(f"ingest timing: {len(kernel_ms)} dc_scan_kernel launches in the increment, not 2")
+    delta_pr, strip_pr = 2 * lo * chunk, 2 * chunk * hi
+    log(f"ingest timing ({hi} rows): clean_scope_increment(max_strips=1) {wall_ms:.3f} ms; "
+        f"dc_scan_kernel {kernel_ms[0]:.3f} ms on the ingest delta ({lo} checked x {chunk} "
+        f"fresh, {delta_pr:.3e} pair-roles, {delta_pr / kernel_ms[0] / 1e9:.3f}e12 a second) "
+        f"and {kernel_ms[1]:.3f} ms on one strip ({chunk} x {hi}, {strip_pr:.3e} pair-roles, "
+        f"{strip_pr / kernel_ms[1] / 1e9:.3f}e12 a second)")
+    return dict(delta_ms=kernel_ms[0], strip_ms=kernel_ms[1])
+
+
+def increment_profile(daisy):
+    """``clean_scope_increment("h", "pd", max_strips=1)`` under
+    ``torch.profiler``: each dc_scan_kernel launch's device time, in launch
+    order, and the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = daisy.clean_scope_increment("h", "pd", max_strips=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if rep is None or rep.mode not in ("strip", "full"):
+        fail(f"ingest timing: the increment reported {rep}")
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "dc_scan_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+    return [event_device_us(e) / 1e3 for e in kernels], wall_ms
+
+
+# ------------------------------------------------------------------ phase 13
+def service_phase(dev):
+    """Phase 13: the port's query-service launcher (``run_queries``) on the
+    card at full size, with the background cleaner, streamed ingest and
+    QoS, under ``torch.profiler`` for the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import ServeOptions, run_queries
+
+    opts = ServeOptions(sessions=8, requests=SERVICE_REQUESTS, rows=SERVICE_ROWS, max_batch=8,
+                        background=True, increment_strips=16, ingest_chunks=4,
+                        ingest_rows=SERVICE_CHUNK, qos=True, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run = run_queries(opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    snap = run.snapshot
+    daisy = run.daisy
+    errors = [t.error for t in run.tickets if t.error is not None]
+    if errors or snap["errors"] or not all(t.event.is_set() for t in run.tickets):
+        fail(f"service: {snap['errors']} errors, {errors[:2]}")
+    if snap["answered"] != SERVICE_REQUESTS or snap["ingested_rows"] != 4 * SERVICE_CHUNK:
+        fail(f"service: answered {snap['answered']}, ingested {snap['ingested_rows']}")
+    n_rows = int(daisy.db["h"].num_rows())
+    if n_rows != SERVICE_ROWS + 4 * SERVICE_CHUNK or daisy.db["h"].capacity != 262_144:
+        fail(f"service: {n_rows} rows in a table of capacity {daisy.db['h'].capacity}")
+    t0 = time.perf_counter()
+    drained = run.cleaner.drain()
+    sync(dev)
+    t_drain = time.perf_counter() - t0
+    cold = (daisy.cold_count("h", "zc"), daisy.cold_count("h", "bq"))
+    if cold != (0, 0):
+        fail(f"service: cold rows {cold} after the final drain")
+    busy_us, launches = named_device_us(prof, "")
+    scan_us, scan_launches = named_device_us(prof, "dc_scan_kernel")
+    log(f"service: {snap['answered']} tickets answered ({snap['queries']} served, "
+        f"{snap['qos']['shed']} shed), 0 errors, {snap['ingested_rows']} rows ingested, "
+        f"{n_rows} rows in capacity {daisy.db['h'].capacity}; the run {wall:.3f} s under "
+        f"torch.profiler ({snap['queries'] / wall:.1f} q/s); kernels busy {busy_us / 1e3:.3f} ms "
+        f"in {launches} launches (idle share {1 - busy_us / 1e6 / wall:.3f}), dc_scan_kernel "
+        f"{scan_us / 1e3:.3f} ms in {scan_launches}; final drain {drained} increments "
+        f"{t_drain:.3f} s, then 0 cold rows for zc and bq")
+
+
+# ------------------------------------------------------------------ phase 14
 @contextlib.contextmanager
 def captured_attention():
     """Within this context every ``kops.flash_attention`` call records its
@@ -1477,7 +1876,7 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------------ phase 12
+# ------------------------------------------------------------------ phase 15
 def engine_phase(dev, cfg, params):
     import numpy as np
     import torch
@@ -1571,6 +1970,9 @@ def main() -> int:
     drive("join", lambda: join_phase(dev))
     drive("offline", lambda: offline_phase(dev, fd_queries, fd_masks, fd_daisy_s, dc_daisy_s))
     del fd_masks
+    serial_phase(dev)
+    dc_measured["ingest_timing"] = drive("ingest", lambda: ingest_phase(dev))
+    drive("service", lambda: service_phase(dev))
     paths["lm"], cfg, params = lm_phase(dev)
     drive("engine", lambda: engine_phase(dev, cfg, params))
     for path, counts in paths.items():

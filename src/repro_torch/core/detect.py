@@ -6,7 +6,10 @@ same pass yields the candidate (value, frequency) tables.  DC detection is
 the partitioned theta-join, one fused both-role scan
 (``kernels.ops.dc_pair_scan``) — the CUDA kernel on the card.
 
-Only the dense path is ported: a ``mesh`` raises ``NotImplementedError``.
+Every dense entry of the reference is here: whole-grid scans, strip and
+worklist scans (the background cleaner's strip increments) and col-range
+scans (streaming ingest's deltas, DESIGN.md §12).  Only the sharded path
+waits: a ``mesh`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -134,6 +137,11 @@ def detect_dc(
         tiles_launched=res.tiles.launched, tiles_total=res.tiles.total,
         bytes_moved=res.tiles.bytes_moved,
     )
+
+
+def dc_violation_count(result: DCDetectResult) -> torch.Tensor:
+    """Total number of violating ordered pairs (each counted once), int32."""
+    return result.t1_count.sum(dtype=torch.int32)
 
 
 class DetectResult(NamedTuple):

@@ -15,13 +15,26 @@ queries.  ``Daisy.execute(query)`` runs the cleaning-aware plan:
    incremental join of the relaxation extras (Fig. 5), the Def. 3 (d)
    re-check of the stitched result, and group-by over its lineage.
 
-Every FD/DC mode that the reference's ``execute`` reaches is here —
-incremental, full (pruned to the cold part of the scope) and skipped —
-with the same cost models, statistics and work ledger, so ``StepReport``s
-and scope versions match the reference query by query.  The strip mode,
-which only the reference's background increments plan, waits with them.
-Streaming ingest, background increments and sharded detection wait for
-later slices: a config with a ``mesh`` raises ``NotImplementedError``.
+Every FD/DC mode of the reference is here — incremental, full (pruned to
+the cold part of the scope), strip and skipped — with the same cost
+models, statistics and work ledger, so ``StepReport``s and scope versions
+match the reference step by step.  So are the reference's other entry
+points into the instance:
+
+* ``ingest`` appends rows to a live table (DESIGN.md §12): the relation
+  grows bit for bit, the ledger marks the fresh strips, and scopes that
+  hold checked rows queue an ingest-delta that the next cleaning step of
+  the scope drains (``_process_pending``: an O(checked x fresh) scan — for
+  a DC, the pair scan over the checked rows' blocks x the fresh rows'
+  col-block range);
+* ``clean_scope_increment`` is one bounded background increment
+  (DESIGN.md §10/§11): whole lhs groups up to ``max_rows`` for an FD, up
+  to ``max_strips`` ledger strips x the whole table for a DC (the pair
+  scan over those strips' row blocks);
+* ``lock`` serializes them with ``execute`` for the query service.
+
+Sharded detection waits for a later slice: a config with a ``mesh`` raises
+``NotImplementedError``, and ``sharded_info`` stays empty.
 
 All state lives on one device, the ``device`` the engine was built for
 (``"cuda"`` unless the caller asks for the CPU).
@@ -31,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +53,7 @@ from repro_torch.core import stats as statsmod
 from repro_torch.core.constraints import DC, FD
 from repro_torch.core.cost import CostModel
 from repro_torch.core.detect import detect_auto, detect_fd
-from repro_torch.core.ledger import WorkLedger
+from repro_torch.core.ledger import TABLE_ROWS_RULE, WorkLedger
 from repro_torch.core.operators import (
     GroupBySpec,
     JoinState,
@@ -54,10 +67,17 @@ from repro_torch.core.operators import (
     key_candidates,
     prob_equijoin,
 )
-from repro_torch.core.planner import CleanStep, PlanInfo, plan_query
+from repro_torch.core.planner import (
+    CleanStep,
+    PlanInfo,
+    plan_query,
+    probe_step,
+    strip_step,
+)
 from repro_torch.core.relax import relax_fd
-from repro_torch.core.relation import Relation, resolve_device
-from repro_torch.core.repair import dc_repair_candidates, fd_repair_candidates
+from repro_torch.core.relation import Relation, append_rows, resolve_device
+from repro_torch.core.repair import Candidates, dc_repair_candidates, fd_repair_candidates
+from repro_torch.core.setops import group_distinct_candidates
 from repro_torch.core.update import apply_candidates, mark_checked, unchecked
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -68,6 +88,14 @@ def _host(mask: torch.Tensor) -> np.ndarray:
 
 def _count(mask: torch.Tensor) -> int:
     return int(mask.sum())
+
+
+def _blocks_attr(blocks) -> Optional[List[int]]:
+    """JSON-safe span annotation for a kernel block range ``[lo, hi)``."""
+    if blocks is None:
+        return None
+    lo, hi = blocks
+    return [int(lo), int(hi)]
 
 
 @dataclasses.dataclass
@@ -97,7 +125,7 @@ class DaisyConfig:
 class StepReport:
     rule: str
     table: str
-    mode: str  # incremental | full | skipped
+    mode: str  # incremental | full | strip | skipped | ingest-delta
     detect_path: str = "dense"
     answer_size: int = 0
     extra: int = 0
@@ -135,6 +163,27 @@ class DaisyResult:
     report: ExecReport = dataclasses.field(default_factory=ExecReport)
 
 
+@dataclasses.dataclass
+class IngestReport:
+    """What one ``Daisy.ingest`` call did (DESIGN.md §12): where the rows
+    landed, whether the relation grew, which strips went fresh, and which
+    rule scopes queued an ingest-delta for their next cleaning step."""
+
+    table: str
+    rows: int  # appended row count
+    start: int  # row index of the first appended row
+    capacity_before: int
+    capacity: int
+    grown: bool
+    fresh_strips: int  # strips (per rule scope, max over rules) marked fresh
+    pending_rules: List[str] = dataclasses.field(default_factory=list)
+    versions: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def asdict(self) -> Dict[str, object]:
+        """Plain-scalar dict for service metrics / json."""
+        return dataclasses.asdict(self)
+
+
 class Daisy:
     """Query-driven cleaning engine on one torch device."""
 
@@ -161,6 +210,10 @@ class Daisy:
         self.stats: Dict[Tuple[str, str], object] = {}
         self.cost: Dict[Tuple[str, str], CostModel] = {}
         self._clean_version = 0
+        # the routing of the last sharded detect per rule: the sharded path
+        # is not ported yet, so this stays empty (the background cleaner's
+        # priority model reads it)
+        self.sharded_info: Dict[Tuple[str, str], object] = {}
         self.detect_calls = 0
         self.repair_calls = 0
         self.detect_pairs = 0
@@ -181,6 +234,14 @@ class Daisy:
     def clean_version(self) -> int:
         """Monotone clean-state version, bumped on every commit."""
         return self._clean_version
+
+    @property
+    def lock(self) -> threading.RLock:
+        """The executor's re-entrancy lock.  Callers that must read versioned
+        state and act on it atomically with respect to a concurrent cleaner
+        (the service's cache-lookup-or-execute, the background cleaner's
+        increments) take it; ``execute`` and ``ingest`` re-acquire it."""
+        return self._lock
 
     def scope_version(self, table: str, rule_name: str) -> int:
         """Monotone per-(table, rule) version, backed by the work ledger."""
@@ -233,12 +294,118 @@ class Daisy:
                         expected_queries=self.config.expected_queries,
                     )
 
+    def _refresh_stats(self, table: str) -> None:
+        """Recompute one table's per-rule statistics after an append and
+        fold the new instance size into the existing cost models in place
+        (histories and the switched flag survive: an append changes the
+        economics of future work, not what already happened)."""
+        rel = self.db[table]
+        n = int(rel.num_rows())
+        for rule in self.rules.get(table, ()):
+            key = (table, rule.name)
+            cm = self.cost.get(key)
+            if isinstance(rule, FD):
+                st = statsmod.fd_stats(rel, rule)
+                self.stats[key] = st
+                if cm is not None:
+                    cm.n, cm.df = n, float(n)
+                    cm.epsilon, cm.p = st.epsilon, st.p_est
+            else:
+                st = statsmod.dc_stats(rel, rule, p=self.config.dc_partitions)
+                self.stats[key] = st
+                if cm is not None:
+                    cm.n = n
+                    cm.df = n * n / max(self.config.dc_partitions, 1)
+                    cm.epsilon = int(st.range_vio.sum())
+
+    # ---------------------------------------------------------------- ingest
+    def ingest(self, table: str, rows: Mapping[str, np.ndarray]) -> IngestReport:
+        """Append host rows into a live table (DESIGN.md §12).
+
+        Under ``lock``, in order: the rows land in the relation's spare
+        capacity (growing to ``next_pow2`` when full; every existing array
+        is kept bit for bit); the table's statistics and cost models
+        refresh; and each rule scope's ledger extends, the fresh rows'
+        strips reading as cold and fresh, no checked state invalidated.
+        Scopes that already hold checked rows queue a ``PendingIngest``:
+        the next cleaning step of the scope (foreground or background)
+        gives those rows the fresh partners' evidence in O(new x all) work
+        (``_process_pending``).  Only the table's ``TABLE_ROWS_RULE``
+        version bumps here, so every cached answer over this table goes
+        stale exactly once."""
+        with self._lock, self.tracer.span("daisy.ingest", table=table) as sp:
+            report = self._ingest_locked(table, rows)
+            sp.set(rows=report.rows, grown=report.grown)
+            return report
+
+    def _ingest_locked(self, table: str, rows: Mapping[str, np.ndarray]) -> IngestReport:
+        if table not in self.db:
+            raise KeyError(f"unknown table {table!r}")
+        rel = self.db[table]
+        cap_before = rel.capacity
+        # per-rule ingest-delta inputs BEFORE the append: which rows are
+        # checked, and (FDs) which rows were statically dirty
+        had_checked: Dict[str, np.ndarray] = {}
+        old_dirty: Dict[str, np.ndarray] = {}
+        for rule in self.rules.get(table, ()):
+            ch = rel.checked.get(rule.name)
+            if ch is None:
+                continue
+            ch_np = _host(ch)
+            if ch_np.any():
+                had_checked[rule.name] = ch_np
+                if isinstance(rule, FD):
+                    st = self.stats.get((table, rule.name))
+                    dirty = (
+                        st.dirty_row if st is not None
+                        else statsmod.fd_stats(rel, rule).dirty_row
+                    )
+                    old_dirty[rule.name] = np.asarray(dirty, dtype=bool)
+        new_rel, start = append_rows(rel, rows)
+        n_new = int(new_rel.valid.sum()) - start
+        report = IngestReport(
+            table=table, rows=n_new, start=start,
+            capacity_before=cap_before, capacity=new_rel.capacity,
+            grown=new_rel.capacity != cap_before, fresh_strips=0,
+        )
+        if n_new == 0:
+            return report
+        self.db[table] = new_rel
+        hi = start + n_new
+        if self.config.collect_stats:
+            self._refresh_stats(table)
+        cap = new_rel.capacity
+        for rule in self.rules.get(table, ()):
+            checked = had_checked.get(rule.name)
+            od = old_dirty.get(rule.name)
+            if checked is not None and checked.shape[0] < cap:
+                checked = np.pad(checked, (0, cap - checked.shape[0]))
+            if od is not None and od.shape[0] < cap:
+                od = np.pad(od, (0, cap - od.shape[0]))
+            cold = _host(self._cold_mask(new_rel, table, rule.name))
+            scope = self.ledger.record_ingest(
+                table, rule.name, cap, cold, start, hi, checked=checked, old_dirty=od,
+            )
+            report.fresh_strips = max(report.fresh_strips, len(scope.fresh))
+            if scope.pending:
+                report.pending_rules.append(rule.name)
+            cm = self.cost.get((table, rule.name))
+            if cm is not None:
+                cm.observe_progress(scope.cold_fraction)
+        self.ledger.bump(table, TABLE_ROWS_RULE)
+        report.versions = {
+            rule.name: self.ledger.version(table, rule.name)
+            for rule in self.rules.get(table, ())
+        }
+        report.versions[TABLE_ROWS_RULE] = self.ledger.version(table, TABLE_ROWS_RULE)
+        return report
+
     def _want_full(self) -> Dict[Tuple[str, str], bool]:
         if not self.config.use_cost_model:
             return {}
         return {key: cm.should_switch_to_full() for key, cm in self.cost.items()}
 
-    # -------------------------------------------------------------- ledger
+    # ----------------------------------------------- ledger and increments
     def _rule_named(self, table: str, rule_name: str):
         for rule in self.rules.get(table, ()):
             if rule.name == rule_name:
@@ -256,28 +423,256 @@ class Daisy:
         return cold
 
     def cold_rows(self, table: str, rule_name: str) -> torch.Tensor:
-        """Rows a first-touch foreground query would still pay detect work for."""
+        """Rows a first-touch foreground query would still pay detect work
+        for.  Read under ``lock`` if a cleaner may be committing."""
         return self._cold_mask(self.db[table], table, rule_name)
 
-    def _cold_groups(self, rel: Relation, fd: FD, cold: torch.Tensor) -> torch.Tensor:
-        """Valid rows of every lhs group that holds a cold row, groups taken
-        whole (candidates are per-group evidence).  Host numpy, as the
-        reference's ``_fd_increment_seed`` with no row budget."""
+    def cold_count(self, table: str, rule_name: str) -> int:
+        """Host count of ``cold_rows``, read from the ledger (no device
+        sync).  A scope the ledger has never sized (a rule appended to a
+        live Daisy) is registered from the real cold mask on first read."""
+        scope = self.ledger.scope(table, rule_name)
+        cap = self.db[table].capacity
+        if scope is None or scope.capacity < cap:
+            scope = self.ledger.register(
+                table, rule_name, cap, _host(self.cold_rows(table, rule_name)),
+            )
+        return scope.cold_count
+
+    def _fd_increment_seed(
+        self,
+        rel: Relation,
+        fd: FD,
+        cold: torch.Tensor,
+        max_rows: Optional[int],
+        prefer: Optional[np.ndarray] = None,
+    ) -> torch.Tensor:
+        """Whole-lhs-group seed mask for one FD increment: the first
+        (ascending group id) cold groups whose valid rows total at least
+        ``max_rows`` (always >= 1 group; every cold group for None).  Groups
+        are taken whole: candidates are per-group evidence.  ``prefer``
+        front-loads groups meeting that host mask (the freshly ingested
+        strips).  Host numpy, as the reference."""
         valid = _host(rel.valid)
+        cold_np = _host(cold)
         gid = np.zeros(valid.shape[0], dtype=np.int64)
         for attr in fd.lhs:
             _, inv = np.unique(_host(rel.columns[attr]), return_inverse=True)
             gid = gid * (int(inv.max()) + 1) + inv
+        # densify the combined key so per-group sizes are one bincount pass
         _, gid = np.unique(gid, return_inverse=True)
-        cold_groups = np.unique(gid[_host(cold)])
+        cold_groups = np.unique(gid[cold_np])
+        if prefer is not None:
+            pref = np.unique(gid[prefer & cold_np])
+            rest = cold_groups[~np.isin(cold_groups, pref)]
+            cold_groups = np.concatenate([pref, rest])
+        if max_rows is not None:
+            sizes = np.bincount(gid[valid], minlength=int(gid.max()) + 1)
+            cum = np.cumsum(sizes[cold_groups])
+            cut = int(np.searchsorted(cum, max_rows)) + 1
+            cold_groups = cold_groups[:cut]
         return torch.from_numpy(valid & np.isin(gid, cold_groups)).to(rel.device)
 
+    def clean_scope_increment(
+        self,
+        table: str,
+        rule_name: str,
+        max_rows: Optional[int] = None,
+        max_strips: Optional[int] = None,
+    ) -> Optional[StepReport]:
+        """One preemptible background-cleaning increment for a rule scope
+        (DESIGN.md §10/§11); its ``StepReport``, or ``None`` when the scope
+        is already warm.
+
+        Runs under ``lock`` and commits through the foreground path, so it
+        bumps the ledger versions exactly as a query would.  An FD cleans up
+        to ``max_rows`` cold rows, seeded on whole lhs groups and run through
+        the incremental pipeline (relax, detect, repair, mark); a DC cleans
+        up to ``max_strips`` ledger strips (``None``: every cold strip, the
+        remaining full clean) x the whole table through the pair scan's row
+        worklist.  Queued ingest-deltas drain first; a scope with nothing
+        cold but a delta reports the delta.  Cost-model histories are not
+        touched (``record_cost=False``)."""
+        with self._lock:
+            rule = self._rule_named(table, rule_name)
+            report = ExecReport()
+            pending_rep = self._process_pending(table, rule, report)
+            rel = self.db[table]
+            cold = self.cold_rows(table, rule_name)
+            if not bool(cold.any()):
+                return pending_rep
+            if isinstance(rule, FD):
+                scope_l = self.ledger.scope(table, rule_name)
+                prefer = None
+                if scope_l is not None and scope_l.fresh:
+                    prefer = scope_l.strip_mask(sorted(scope_l.fresh))
+                seed = self._fd_increment_seed(rel, rule, cold, max_rows, prefer=prefer)
+                self._clean_fd(
+                    probe_step(table, rule), report,
+                    answer_override=seed, record_cost=False,
+                )
+            else:
+                # register-and-refresh from the cold mask just computed, so a
+                # rule appended to a live Daisy hands over its real strips
+                scope = self.ledger.register(table, rule_name, rel.capacity, _host(cold))
+                strips = scope.cold_strips(fresh_first=True)
+                if max_strips is not None:
+                    strips = strips[: max(int(max_strips), 1)]
+                self._clean_dc(strip_step(table, rule, strips), report, record_cost=False)
+            return report.steps[-1] if report.steps else None
+
+    # -------------------------------------------------------- ingest deltas
+    def _process_pending(
+        self, table: str, rule, report: Optional[ExecReport] = None
+    ) -> Optional[StepReport]:
+        """Drain a scope's queued ingest-deltas (DESIGN.md §12): for every
+        append since the scope's last cleaning step, give the rows that were
+        checked at append time the evidence the fresh rows owe them, an
+        O(checked x fresh) scan.  Runs at the top of every cleaning path,
+        before any skip gate.  No rows are marked: the fresh rows stay cold
+        until their own first clean."""
+        pendings = self.ledger.take_pending(table, rule.name)
+        if not pendings:
+            return None
+        rep = StepReport(rule.name, table, "ingest-delta")
+        with self.tracer.span(
+            "clean.ingest_delta", rule=rule.name, table=table, deltas=len(pendings),
+        ) as sp:
+            if isinstance(rule, FD):
+                self._ingest_delta_fd(table, rule, pendings, rep)
+            else:
+                self._ingest_delta_dc(table, rule, pendings, rep)
+            sp.set(pairs=rep.detect_pairs)
+        if report is not None:
+            report.steps.append(rep)
+        return rep
+
+    def _pending_masks(self, ent, cap: int):
+        """Host (checked at append time, fresh rows) masks of one pending
+        ingest at the relation's current capacity."""
+        pos = np.arange(cap)
+        checked = np.zeros(cap, dtype=bool)
+        c = np.asarray(ent.checked, dtype=bool)
+        checked[: min(c.shape[0], cap)] = c[:cap]
+        return checked, (pos >= ent.lo) & (pos < ent.hi)
+
+    def _ingest_delta_fd(self, table: str, fd: FD, pendings, rep: StepReport) -> None:
+        """FD ingest-delta: re-derive candidate evidence for checked rows
+        whose lhs group gained fresh members, append by append against the
+        instance each one saw (rows below its ``hi``).  Over the relaxation
+        closure of the fresh rows' groups, checked rows that were dirty at
+        append time get the fresh-weighted counts (fresh members weigh 1,
+        old ones 0: by Lemma 4 the sum equals one merge over the whole
+        group); checked rows that were clean then and are violated now get
+        the full group counts, their first evidence merge."""
+        k = self.config.k
+        for ent in pendings:
+            rel = self.db[table]
+            dev = rel.device
+            cap = rel.capacity
+            checked_np, fresh_np = self._pending_masks(ent, cap)
+            dirty = np.zeros(cap, dtype=bool)
+            if ent.old_dirty is not None:
+                d = np.asarray(ent.old_dirty, dtype=bool)
+                dirty[: min(d.shape[0], cap)] = d[:cap]
+            fresh = torch.from_numpy(fresh_np).to(dev)
+            below = torch.from_numpy(np.arange(cap) < ent.hi).to(dev)
+            rel_hi = dataclasses.replace(rel, valid=rel.valid & below)
+            seed = fresh & rel_hi.valid
+            if not bool(seed.any()):
+                continue
+            self.detect_calls += 1
+            res = relax_fd(
+                rel_hi, seed, fd, max_iters=self.config.max_relax_iters, use_rhs=True,
+            )
+            scope = (seed | res.extra) & rel_hi.valid
+            scope_n = _count(scope)
+            rep.answer_size += _count(seed)
+            rep.extra += _count(res.extra)
+            rep.detect_pairs += scope_n  # group-by is O(scope)
+            self.detect_pairs += scope_n
+            lhs_cols = [rel.columns[a] for a in fd.lhs]
+            rhs_col = rel.columns[fd.rhs]
+            wt = fresh.to(torch.float32)
+            full_v, full_n, violated, _ = group_distinct_candidates(
+                lhs_cols, rhs_col, scope, k
+            )
+            fresh_v, fresh_n, _, _ = group_distinct_candidates(
+                lhs_cols, rhs_col, scope, k, weight=wt
+            )
+            lhs_single = len(fd.lhs) == 1
+            if lhs_single:
+                lfull_v, lfull_n, _, _ = group_distinct_candidates(
+                    [rhs_col], lhs_cols[0], scope, k
+                )
+                lfresh_v, lfresh_n, _, _ = group_distinct_candidates(
+                    [rhs_col], lhs_cols[0], scope, k, weight=wt
+                )
+            checked = torch.from_numpy(checked_np).to(dev)
+            dirty_t = torch.from_numpy(dirty).to(dev)
+            t_fresh = checked & violated & dirty_t & scope
+            t_full = checked & violated & ~dirty_t & scope
+            kinds = torch.zeros(full_v.shape, dtype=torch.int8, device=dev)
+            deltas = []
+            for rows_mask, rv, rn, lv, ln in (
+                (t_fresh, fresh_v, fresh_n,
+                 *((lfresh_v, lfresh_n) if lhs_single else (None, None))),
+                (t_full, full_v, full_n,
+                 *((lfull_v, lfull_n) if lhs_single else (None, None))),
+            ):
+                if not bool(rows_mask.any()):
+                    continue
+                deltas.append((fd.rhs, Candidates(rv, rn, kinds, rows_mask)))
+                if lv is not None:
+                    deltas.append((fd.lhs[0], Candidates(lv, ln, kinds, rows_mask)))
+            if deltas:
+                self.repair_calls += 1
+                rep.repaired += _count(t_fresh | t_full)
+                self.db[table] = self._apply(rel, deltas, table, fd.name)
+
+    def _ingest_delta_dc(self, table: str, dc: DC, pendings, rep: StepReport) -> None:
+        """DC ingest-delta: one [checked x fresh] matrix strip per append,
+        the pair scan over the checked rows' blocks x the fresh rows'
+        col-block range ``[lo // block, ceil(hi / block))``.  The first col
+        block holds old rows too when the append starts mid-block; the col
+        scope (the fresh rows) masks them out.  The fresh rows stay cold:
+        their own [fresh x all] evidence comes with their first clean."""
+        block = self.config.dc_block
+        cm = self.cost.get((table, dc.name))
+        for ent in pendings:
+            rel = self.db[table]
+            dev = rel.device
+            checked_np, fresh_np = self._pending_masks(ent, rel.capacity)
+            fresh = torch.from_numpy(fresh_np).to(dev)
+            row_scope = torch.from_numpy(checked_np).to(dev) & rel.valid
+            if not bool(row_scope.any()):
+                continue
+            row_block_ids = self._active_blocks(row_scope)
+            col_blocks = (ent.lo // block, -(-ent.hi // block))
+            rep.answer_size += _count(fresh & rel.valid)
+            rel, det = self._dc_detect_repair(
+                rel, dc, row_scope, fresh, cm, rep,
+                col_blocks=col_blocks, row_block_ids=row_block_ids,
+            )
+            rep.repaired += _count(((det.t1_count > 0) | (det.t2_count > 0)) & row_scope)
+            self.db[table] = rel
+
     # ------------------------------------------------------------- FD steps
-    def _clean_fd(self, step: CleanStep, report: ExecReport) -> None:
-        """One FD cleaning step (see the reference's ``Daisy._clean_fd``)."""
+    def _clean_fd(
+        self,
+        step: CleanStep,
+        report: ExecReport,
+        answer_override: Optional[torch.Tensor] = None,
+        record_cost: bool = True,
+    ) -> None:
+        """One FD cleaning step (see the reference's ``Daisy._clean_fd``).
+        ``answer_override`` stands in for the predicate filter (a background
+        increment's cold groups); ``record_cost=False`` keeps background
+        work out of the cost-model history."""
         table, fd = step.table, step.rule
+        self._process_pending(table, fd, report)
         rel = self.db[table]
-        cm = self.cost.get((table, fd.name))
+        cm = self.cost.get((table, fd.name)) if record_cost else None
         st = self.stats.get((table, fd.name))
         rep = StepReport(fd.name, table, step.mode)
 
@@ -287,13 +682,16 @@ class Daisy:
             # the mark still covers the whole relation
             cold = self._cold_mask(rel, table, fd.name)
             if bool(cold.any()):
-                scope = self._cold_groups(rel, fd, cold)
+                scope = self._fd_increment_seed(rel, fd, cold, None)
             else:
                 scope = rel.valid
             mark_scope = rel.valid
             rep.answer_size = _count(scope)
         else:
-            answer = filter_mask(rel, step.preds)
+            answer = (
+                answer_override if answer_override is not None
+                else filter_mask(rel, step.preds)
+            )
             rep.answer_size = _count(answer)
             # Fig. 11 skip: answer touches no dirty group and nothing unchecked
             if st is not None:
@@ -349,9 +747,12 @@ class Daisy:
 
     # ------------------------------------------------------------- DC steps
     def _dc_detect_repair(self, rel, dc, row_scope, col_scope, cm, rep,
-                          row_block_ids=None, col_block_ids=None):
-        """One detect + repair-candidate pass of the DC increment engine over
-        the block worklist; accounts the scanned comparison space and the
+                          col_blocks=None, row_block_ids=None, col_block_ids=None):
+        """One detect + repair-candidate pass of the DC increment engine:
+        the pair scan over ``row_scope x col_scope`` on the block worklist
+        (``row_block_ids`` / ``col_block_ids``, or the col-block range
+        ``col_blocks`` of an ingest delta), the role fixes merged for the
+        ``row_scope`` rows; accounts the scanned comparison space and the
         launch geometry.  Returns ``(rel, detect_result)``."""
         table = rep.table
         self.detect_calls += 1
@@ -361,12 +762,13 @@ class Daisy:
         self.detect_pairs += rows * cols
         with self.tracer.span(
             "clean.detect", rule=dc.name, table=table, mode=rep.mode,
-            pairs=rows * cols, row_blocks=None, col_blocks=None,
+            pairs=rows * cols, row_blocks=None, col_blocks=_blocks_attr(col_blocks),
             row_block_ids=None if row_block_ids is None else len(row_block_ids),
             col_block_ids=None if col_block_ids is None else len(col_block_ids),
         ) as sp:
             det, _ = detect_auto(
                 rel, dc, row_scope, col_scope, block=self.config.dc_block,
+                col_blocks=col_blocks,
                 row_block_ids=row_block_ids, col_block_ids=col_block_ids,
                 encode=self.config.kernel_encodings,
             )
@@ -376,6 +778,9 @@ class Daisy:
             rep.tiles_skipped += skipped
             self.tiles_launched += launched
             self.tiles_skipped += skipped
+            scope = self.ledger.scope(table, dc.name)
+            if scope is not None:
+                scope.note_tiles(launched, skipped)
             if cm is not None and rep.mode == "full" and det.tiles_total:
                 cm.observe_tile_sparsity(launched / det.tiles_total)
             sp.set(path=rep.detect_path, tiles_launched=launched, tiles_skipped=skipped)
@@ -393,10 +798,25 @@ class Daisy:
             return None
         return np.unique(idx // self.config.dc_block).astype(np.int32)
 
-    def _clean_dc(self, step: CleanStep, report: ExecReport) -> None:
+    def _clean_dc(
+        self, step: CleanStep, report: ExecReport, record_cost: bool = True
+    ) -> None:
         """One DC cleaning step through the strip-grained increment engine
-        (modes auto / incremental / full, as the reference)."""
+        (DESIGN.md §11).  Modes, as the reference's:
+
+        * ``auto`` — Algorithm 2 resolves full vs incremental, its support
+          input the ledger's strip coverage;
+        * ``incremental`` — the answer's matrix strip [answer x rest] plus
+          the partner strip [rest x answer] (§4.2);
+        * ``full`` — the remaining cold strips x the whole table;
+        * ``strip`` — an explicit cold-strip subset (``step.strips``), the
+          background cleaner's bounded increment; a sweep that covers every
+          cold strip is the remaining full clean and reports ``full``.
+
+        ``record_cost=False`` keeps background work out of the cost-model
+        history (a scope-completing sweep still marks the rule switched)."""
         table, dc = step.table, step.rule
+        self._process_pending(table, dc, report)
         rel = self.db[table]
         key = (table, dc.name)
         cm = self.cost.get(key)
@@ -420,30 +840,36 @@ class Daisy:
             mode = "incremental"
 
         live = unchecked(rel, dc.name)
+        cold_ids = scope_ledger.cold_strips()
         cold_frac = scope_ledger.cold_fraction
         row_block_ids = None
         if mode == "incremental":
             row_scope = answer & live
         else:
-            # the remaining full clean: every cold strip of the scope
-            sel = scope_ledger.cold_strips()
+            sel = cold_ids
             if step.strips is not None:
-                sel = np.intersect1d(np.asarray(step.strips, dtype=np.int64), sel)
+                # drop strips that raced warm since the step was planned
+                sel = np.intersect1d(np.asarray(step.strips, dtype=np.int64), cold_ids)
+            if mode == "strip" and len(sel) < len(cold_ids):
+                rep.mode = "strip"
+            else:
+                mode = "full"  # covers every cold strip == remaining full clean
             if len(sel):
                 row_scope = (
                     torch.from_numpy(scope_ledger.strip_mask(sel)).to(live.device) & live
                 )
+                # the exact cold-strip block ids: warm strips never launch
                 row_block_ids = scope_ledger.strip_block_ids(sel, self.config.dc_block)
             else:
                 row_scope = torch.zeros_like(rel.valid)
-        rep.mode = mode
-        rep.answer_size = _count(answer)
+        rep.mode = mode if mode != "strip" else rep.mode
+        rep.answer_size = _count(row_scope if mode == "strip" else answer)
 
         # idempotence gate: everything this step would scope is checked
         if not bool(row_scope.any()):
             rep.mode = "skipped"
             report.steps.append(rep)
-            if cm:
+            if cm and record_cost:
                 cm.record(rep.answer_size, 0, 0.0, 0)
             return
 
@@ -471,12 +897,12 @@ class Daisy:
 
         rel = self._mark(rel, table, dc.name, row_scope)
         self.db[table] = rel
-        if cm:
+        if cm and record_cost:
             n = cm.n
             d_i = (
                 float(rep.answer_size) * n / max(self.config.dc_partitions, 1)
                 if mode == "incremental"
-                else cm.df * cold_frac
+                else cm.df_effective * cold_frac
             )
             cm.record(rep.answer_size, rep.extra, d_i, rep.repaired)
         if cm and rep.mode == "full":

@@ -43,8 +43,9 @@ class CleanStep:
     shardable: bool = False
     # partition-strip grain (DESIGN.md §11): when set, the step scans ONLY
     # these ledger strips (DC row-block strips of the comparison matrix) —
-    # a ledger-pruned full clean.  None means the step is not strip-scoped
-    # (FD steps, answer-scoped DC steps).
+    # the background cleaner's bounded increments and the planner's
+    # ledger-pruned full cleans both express their scope this way.  None
+    # means the step is not strip-scoped (FD steps, answer-scoped DC steps).
     strips: Tuple[int, ...] | None = None
 
 
@@ -72,6 +73,31 @@ def _fd_use_rhs(fd: FD, preds: Sequence[Pred], lemma1_fast_path: bool) -> bool:
     return not (pred_attrs and pred_attrs <= {fd.rhs})
 
 
+def probe_step(table: str, rule) -> CleanStep:
+    """An incremental step with no predicate filter: the executor substitutes
+    an explicit answer mask (``answer_override``).  Background FD increments
+    use it so a cold-group sweep runs the same relax -> detect -> repair ->
+    mark pipeline a foreground query selecting those groups would
+    (DESIGN.md §10), keeping the shardable mark consistent with the planner's.
+    """
+    return CleanStep(
+        table, rule, "post", "incremental", True, (), bool(equality_key_attrs(rule))
+    )
+
+
+def strip_step(table: str, rule, strips) -> CleanStep:
+    """A DC step scoped to a set of ledger strips (DESIGN.md §11): the
+    executor scans ``strips`` x rest-of-dataset and marks exactly the cold
+    rows it covered.  This is the background cleaner's bounded-latency DC
+    increment — and, with ALL cold strips passed, the ledger-pruned form of
+    the full clean (foreground full cleans route through it too, so both
+    paths are one increment engine)."""
+    return CleanStep(
+        table, rule, "pre", "strip", True, (),
+        bool(equality_key_attrs(rule)), tuple(int(s) for s in strips),
+    )
+
+
 def plan_query(
     query: Query,
     rules: Dict[str, Sequence[FD | DC]],
@@ -93,6 +119,13 @@ def plan_query(
         for rule in rules.get(table, ()):  # planner preserves rule order
             if not overlaps_query(rule, attrs):
                 continue
+            if ledger is not None and ledger.has_pending(table, rule.name):
+                # the executor drains queued ingest-deltas at the top of
+                # every cleaning step (DESIGN.md §12); surface it in the plan
+                notes.append(
+                    f"{rule.name}@{table}: ingest-delta pending "
+                    "(drained before this step)"
+                )
             full = want_full.get((table, rule.name), False)
             shardable = bool(equality_key_attrs(rule))
             if isinstance(rule, FD):

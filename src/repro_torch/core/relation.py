@@ -10,7 +10,9 @@ provenance, held as a dataclass of torch tensors instead of a pytree.
 * attribute-level uncertainty is a dense overlay: up to ``K`` candidate
   values per cell with float32 *counts* and int8 *kinds*
   (``CAND_VALUE`` / ``CAND_LT`` / ``CAND_GT``);
-* ``orig`` keeps the pre-cleaning values, ``checked`` the per-rule bits.
+* ``orig`` keeps the pre-cleaning values, ``checked`` the per-rule bits;
+* ``append_rows`` lands streamed rows in the spare capacity, growing every
+  array to ``next_pow2`` rows when it runs out (DESIGN.md §12).
 
 Every tensor of a relation lives on one device.  ``make_relation`` takes
 that device and defaults to ``"cuda"``; it raises when CUDA is missing
@@ -115,6 +117,9 @@ class Relation:
 
     def num_rows(self) -> torch.Tensor:
         return self.valid.sum(dtype=torch.int32)
+
+    def has_overlay(self, name: str) -> bool:
+        return name in self.cand
 
     def probs(self, name: str) -> torch.Tensor:
         """(cap, K) candidate probabilities (counts normalized per row)."""
@@ -241,3 +246,112 @@ def masked_keys(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return torch.where(mask, values, float("inf"))
     return torch.where(mask, values, int(SENTINEL))
 
+
+
+def _pad_value(dtype: torch.dtype):
+    return float("nan") if dtype == torch.float32 else int(SENTINEL)
+
+
+def _grow_relation(rel: Relation, capacity: int) -> Relation:
+    """Re-pad every array of ``rel`` to ``capacity`` rows.
+
+    The first ``rel.capacity`` rows of every array are carried over bit for
+    bit (overlay counts, kinds, checked flags, provenance); the new tail
+    gets exactly the spare-row state ``make_relation`` gives: pad values in
+    columns and orig, ``valid=False``, an empty overlay whose candidate slot
+    0 mirrors the (pad) column value, and unchecked."""
+    old = rel.capacity
+    if capacity < old:
+        raise ValueError(f"cannot shrink capacity {old} -> {capacity}")
+    if capacity == old:
+        return rel
+    extra = capacity - old
+    k = rel.k
+
+    def pad1(arr, fill):
+        tail = torch.full((extra,), fill, dtype=arr.dtype, device=arr.device)
+        return torch.cat([arr, tail])
+
+    def pad2(arr):
+        return torch.cat([arr, torch.zeros((extra, k), dtype=arr.dtype, device=arr.device)])
+
+    columns = {n: pad1(c, _pad_value(c.dtype)) for n, c in rel.columns.items()}
+    valid = pad1(rel.valid, False)
+    cand, ccount, ckind, orig = {}, {}, {}, {}
+    for name, cv in rel.cand.items():
+        pad = _pad_value(cv.dtype)
+        tail = torch.zeros((extra, k), dtype=cv.dtype, device=cv.device)
+        tail[:, 0] = pad
+        cand[name] = torch.cat([cv, tail])
+        ccount[name] = pad2(rel.ccount[name])
+        ckind[name] = pad2(rel.ckind[name])
+        orig[name] = pad1(rel.orig[name], pad)
+    checked = {r: pad1(c, False) for r, c in rel.checked.items()}
+    return Relation(columns, valid, cand, ccount, ckind, orig, checked)
+
+
+def append_rows(rel: Relation, data: Mapping[str, np.ndarray]) -> Tuple[Relation, int]:
+    """Append host rows into a relation's spare capacity (DESIGN.md §12).
+
+    ``data`` must provide exactly the relation's columns.  Rows land at the
+    end of the valid prefix (``valid`` stays a prefix mask); when the spare
+    capacity runs out the relation grows to ``next_pow2`` of the needed row
+    count, keeping every existing array bit for bit.  Fresh rows start as
+    ``make_relation`` rows: certain (empty overlay, candidate slot 0 = the
+    value), unchecked, with ``orig`` equal to the ingested value.  A float
+    ingested into an int column raises ``ValueError``.
+
+    Returns ``(new_relation, start)``, ``start`` the row index of the first
+    appended row.  Pure: the input relation is not changed."""
+    names = set(rel.columns)
+    if set(data) != names:
+        raise ValueError(
+            f"ingest columns {sorted(data)} != relation columns {sorted(names)}"
+        )
+    arrays = {n: np.asarray(v) for n, v in data.items()}
+    lengths = {len(a) for a in arrays.values()}
+    if len(lengths) != 1:
+        raise ValueError(f"ragged ingest batch: column lengths {sorted(lengths)}")
+    n_new = lengths.pop()
+    start = int(rel.valid.sum())
+    if n_new == 0:
+        return rel, start
+
+    needed = start + n_new
+    if needed > rel.capacity:
+        rel = _grow_relation(rel, next_pow2(needed))
+    stop = start + n_new
+
+    dev = rel.device
+    columns = dict(rel.columns)
+    for name, arr in arrays.items():
+        col = columns[name]
+        if col.dtype == torch.float32:
+            vals = arr.astype(np.float32)
+        else:
+            if arr.dtype.kind not in "iu":
+                raise ValueError(f"column {name!r} expects integer values")
+            vals = arr.astype(np.int32)
+        col = col.clone()
+        col[start:stop] = torch.from_numpy(vals).to(dev)
+        columns[name] = col
+    valid = rel.valid.clone()
+    valid[start:stop] = True
+    cand, orig = dict(rel.cand), dict(rel.orig)
+    for name in rel.cand:
+        cv = cand[name].clone()
+        cv[start:stop, 0] = columns[name][start:stop]
+        cand[name] = cv
+        og = orig[name].clone()
+        og[start:stop] = columns[name][start:stop]
+        orig[name] = og
+    return (
+        Relation(columns, valid, cand, dict(rel.ccount), dict(rel.ckind), orig,
+                 dict(rel.checked)),
+        start,
+    )
+
+
+def next_pow2(n: int) -> int:
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()

@@ -10,6 +10,8 @@ from the same seed).
   rhs values per lhs group, returning ground truth.
 * ``inject_dc_errors``: perturbs values to create inequality-DC violating
   pairs at a requested rate.
+* ``hospital_like``: FD zip -> city and zip -> state over a hospital-style
+  table with a known clean version (the query service's workload).
 """
 
 from __future__ import annotations
@@ -102,3 +104,21 @@ def inject_dc_errors(
     dirty[attr] = dirty[attr].copy()
     dirty[attr][edit] = dirty[attr][edit] + magnitude
     return DirtyDataset(dirty, truth, edit)
+
+
+def hospital_like(n: int, error_frac: float = 0.05, seed: int = 4) -> DirtyDataset:
+    """FD zip -> city / county-style dataset with a known clean version."""
+    rng = np.random.default_rng(seed)
+    n_zip = max(n // 20, 4)
+    zipc = rng.integers(0, n_zip, n).astype(np.int32)
+    city_of_zip = rng.integers(0, max(n_zip // 2, 2), n_zip).astype(np.int32)
+    state_of_zip = rng.integers(0, 50, n_zip).astype(np.int32)
+    data = {
+        "zip": zipc,
+        "city": city_of_zip[zipc],
+        "state": state_of_zip[zipc],
+        "beds": rng.integers(10, 500, n).astype(np.int32),
+    }
+    ds = inject_fd_errors(data, "zip", "city", 1.0, error_frac, seed=seed + 1)
+    ds2 = inject_fd_errors(ds.data, "zip", "state", 1.0, error_frac, seed=seed + 2)
+    return DirtyDataset(ds2.data, ds.truth, ds.error_rows | ds2.error_rows)

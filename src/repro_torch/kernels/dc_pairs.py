@@ -56,22 +56,29 @@ _OP_CODE = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 # the atom column dtypes the kernel takes
 _DTYPES = (torch.int32, torch.float32, torch.int8, torch.int16, torch.bfloat16)
 
-# launches of the CUDA kernel, counted by the wrapper at each launch
+# launches of the CUDA kernel, counted by the wrapper at each launch; the
+# query service launches from its serving and cleaner threads, so the count
+# is taken under a lock
 LAUNCHES = {"dc_pair_scan": 0, "dc_role_scan": 0}
+_launches_lock = threading.Lock()
 
 _state = threading.local()
 
 
 def reset_launch_counts() -> None:
     """Zero every kernel launch counter."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 @contextlib.contextmanager
 def plain_version():
     """Within this context the wrapper runs the plain PyTorch version on
-    CUDA tensors too (for holding the kernel against it on the card)."""
+    CUDA tensors too (for holding the kernel against it on the card).  The
+    switch is the calling thread's: a launch from another thread (a
+    background cleaner's) still takes the kernel, so hold the two against
+    each other on schedules driven from one thread."""
     prev = getattr(_state, "plain", False)
     _state.plain = True
     try:
@@ -678,7 +685,8 @@ def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     err = launch(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with _launches_lock:
+        LAUNCHES[name] += 1
     return finish_scan(inp)
 
 

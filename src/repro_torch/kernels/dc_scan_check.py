@@ -42,12 +42,53 @@ class Case(NamedTuple):
     scope: float = 0.8  # share of rows in each scope
     restrict: Optional[Callable] = None  # nb, rng -> worklist keyword arguments
     chunks: Optional[int] = None  # col chunks the launch is given (default: fill the card)
+    # n, block, rng -> (row scope, col scope, worklist keyword arguments) as
+    # numpy; rows at or past ``valid`` hold the pad values (None: none)
+    layout: Optional[Callable] = None
+    valid: Optional[int] = None
 
 
 def _sparse(nb, rng):
     return dict(row_block_ids=np.flatnonzero(rng.random(nb) < 0.3).astype(np.int32),
                 col_block_ids=np.flatnonzero(rng.random(nb) < 0.5).astype(np.int32))
 
+
+def _ingest_delta(old, new):
+    """An append of rows [old, old + new): the checked old rows (most of
+    them) x the fresh rows, over the fresh rows' col-block range."""
+    def layout(n, block, rng):
+        pos = np.arange(n)
+        rs = (pos < old) & (rng.random(n) < 0.9)
+        cs = (pos >= old) & (pos < old + new)
+        rid = np.unique(np.flatnonzero(rs) // block).astype(np.int32)
+        return rs, cs, dict(row_block_ids=rid,
+                            col_blocks=(old // block, -(-(old + new) // block)))
+    return layout
+
+
+def _one_partial_col_block(start, valid):
+    """One col block alone, in scope from ``start`` (mid-block) to the end
+    of the valid prefix; every valid row scanned against it."""
+    def layout(n, block, rng):
+        pos = np.arange(n)
+        return pos < valid, (pos >= start) & (pos < valid), dict(
+            col_blocks=(start // block, start // block + 1))
+    return layout
+
+
+def _strips(count, valid):
+    """``count`` one-block strips of valid rows x every col block of the
+    grid, pad blocks included (a background strip increment)."""
+    def layout(n, block, rng):
+        pos = np.arange(n)
+        rid = np.sort(rng.choice(-(-valid // block), count, replace=False)).astype(np.int32)
+        in_strip = np.isin(pos // block, rid)
+        return in_strip & (pos < valid), pos < valid, dict(row_block_ids=rid)
+    return layout
+
+
+# a grid that has just doubled: 32,768 rows of capacity, 17,384 valid
+GROWN, GROWN_VALID = 32_768, 17_384
 
 CASES: List[Case] = [
     Case("1 atom f32 <", (F32,), None, ("<",), 20_000),
@@ -77,6 +118,18 @@ CASES: List[Case] = [
          restrict=lambda nb, rng: dict(row_blocks=(100, 101))),
     Case("sparse worklist, partial scopes", (F32, F32), None, ("<", ">"), 40_000, scope=0.7,
          restrict=_sparse),
+    Case("ingest delta off a block boundary, int32/f32 <,>", (I32, F32), None, ("<", ">"),
+         16_384, layout=_ingest_delta(8_000, 1_024), valid=9_024),
+    Case("ingest delta of a grown grid, f32 <,>", (F32, F32), None, ("<", ">"), GROWN,
+         layout=_ingest_delta(GROWN_VALID - 1_000, 1_000), valid=GROWN_VALID),
+    Case("one partly fresh col block", (I32, F32), None, ("<", ">"), 16_384,
+         layout=_one_partial_col_block(8_000, 8_100), valid=8_100),
+    Case("1 strip x a grown grid", (I32, F32), None, ("<", ">"), GROWN,
+         layout=_strips(1, GROWN_VALID), valid=GROWN_VALID),
+    Case("2 strips x a grown grid", (F32, F32), None, ("<=", ">="), GROWN,
+         layout=_strips(2, GROWN_VALID), valid=GROWN_VALID),
+    Case("16 strips x a grown grid", (I32, F32), None, ("<", ">"), GROWN,
+         layout=_strips(16, GROWN_VALID), valid=GROWN_VALID),
 ]
 
 
@@ -106,10 +159,17 @@ def case_inputs(case: Case, dev, seed: int = 0) -> dict:
     l_cols = [_column(rng, d, n, case.values).to(dev) for d in case.l_dtypes]
     r_cols = (list(l_cols) if case.r_dtypes is None
               else [_column(rng, d, n, case.values).to(dev) for d in case.r_dtypes])
-    rs = torch.from_numpy(rng.random(n) < case.scope).to(dev)
-    cs = torch.from_numpy(rng.random(n) < case.scope).to(dev)
     nb = -(-n // case.block)
-    restrict = case.restrict(nb, rng) if case.restrict else {}
+    if case.valid is not None:  # the pad values of a relation's spare rows
+        for c in {id(c): c for c in l_cols + r_cols}.values():
+            c[case.valid:] = float("nan") if c.dtype.is_floating_point else torch.iinfo(c.dtype).max
+    if case.layout is not None:
+        rs, cs, restrict = case.layout(n, case.block, rng)
+        rs, cs = torch.from_numpy(rs).to(dev), torch.from_numpy(cs).to(dev)
+    else:
+        rs = torch.from_numpy(rng.random(n) < case.scope).to(dev)
+        cs = torch.from_numpy(rng.random(n) < case.scope).to(dev)
+        restrict = case.restrict(nb, rng) if case.restrict else {}
     from repro_torch.kernels.dc_pairs import resolve_block_ids
 
     rid = resolve_block_ids(nb, restrict.get("row_blocks"), restrict.get("row_block_ids"))

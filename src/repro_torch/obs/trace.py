@@ -162,6 +162,13 @@ class Tracer:
         with self._lock:
             return len(self._events)
 
+    def clear(self) -> None:
+        """Drop all buffered events (the ``dropped`` counter survives as
+        a lifetime total)."""
+        with self._lock:
+            self._events = []
+            self._head = 0
+
 
 class NullTracer(Tracer):
     """The always-disabled tracer every instrumentation seam defaults to.

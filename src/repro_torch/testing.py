@@ -75,3 +75,55 @@ def tree_paths(tree, prefix: str = "") -> Dict[str, object]:
     for k, v in tree.items():
         out.update(tree_paths(v, f"{prefix}.{k}" if prefix else k))
     return out
+
+
+def ledger_state(ledger) -> Dict[str, object]:
+    """Everything a work ledger of either package holds, per scope, as
+    host values: capacity, version, per-strip cold counts, fresh strips,
+    queued ingest-deltas and launch geometry."""
+    out: Dict[str, object] = {}
+    for s in ledger.scopes():
+        out[f"{s.table}/{s.rule}"] = dict(
+            capacity=s.capacity, version=s.version,
+            cold_per_strip=np.asarray(s.cold_per_strip).tolist(),
+            fresh=sorted(int(f) for f in s.fresh),
+            pending=[
+                (p.lo, p.hi, np.asarray(p.checked).tobytes(),
+                 None if p.old_dirty is None else np.asarray(p.old_dirty).tobytes())
+                for p in s.pending
+            ],
+            tiles=(s.tiles_launched, s.tiles_skipped),
+        )
+    return out
+
+
+def engine_state(daisy) -> Dict[str, object]:
+    """The whole versioned state of a ``Daisy`` of either package as host
+    values: every relation's arrays (floats as their bits), the ledger,
+    the clean version and the work counters."""
+    out: Dict[str, object] = {}
+    for table, rel in daisy.db.items():
+        fields = relation_to_numpy(rel)
+        out[f"{table}.valid"] = fields["valid"]
+        for name in _FIELDS:
+            for k, v in fields[name].items():
+                out[f"{table}.{name}.{k}"] = v
+    out["ledger"] = ledger_state(daisy.ledger)
+    out["counters"] = (daisy.clean_version, daisy.detect_calls, daisy.repair_calls,
+                       daisy.detect_pairs, daisy.tiles_launched, daisy.tiles_skipped)
+    return out
+
+
+def state_differences(a: Dict[str, object], b: Dict[str, object]) -> list:
+    """Keys whose values differ between two ``engine_state``s (arrays bit
+    for bit, dtype included); empty when the states are identical."""
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray):
+            if (x.dtype != y.dtype or x.shape != y.shape
+                    or x.view(np.uint8).tobytes() != y.view(np.uint8).tobytes()):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
