@@ -91,7 +91,24 @@ Phases, each of which must pass or the script exits non-zero:
     a serving and a cleaner thread, under ``torch.profiler`` for the
     device's busy share; every ticket answered, no error, and no cold row
     after a final drain;
-14. qwen3-4b at its published width (36 layers, d_model 2560, vocab
+14. sharded violation detection (a one-device ``dist.hints.Mesh``):
+    (a) on fig_dist_detect's relation (DC region ==, price <, discount >;
+    FD orderkey -> suppkey) at 131,072 rows over 4,096 regions, the
+    sharded DC counts and stats and FD candidate tables equal the dense
+    scans at 2, 4, 8 and 16 shards, each sharded DC detect is one
+    ``dc_pair_scan`` launch bit-identical to its plain version, the
+    comparison space shrinks as shards grow and the strip report covers
+    the rows; a copy with 90% of its rows in one region retries its
+    shuffle and still equals the dense scans; (b) a mesh-configured
+    ``Daisy`` (16 shards) equals the dense ``Daisy`` over 8 range queries
+    (answers, overlays, checked bits, versions, step modes), every detect
+    step on the sharded path, ``sharded_info`` and the observed detect
+    costs filled, one launch a sharded DC detect, and the same run on the
+    CPU gives the same state; (c) at 1,048,576 rows over 32,768 regions
+    and 16 shards, the shuffle, the one sharded launch (and its kernel
+    alone by ``torch.profiler``), the whole sharded detect and the dense
+    detect are timed, sharded equal to dense, beside the launch's bound;
+15. qwen3-4b at its published width (36 layers, d_model 2560, vocab
    151,936) with weights from a seed: in float32 compute, prefill(256) then
    decode(token 256) against forward(257) at the last position, and
    prefill(256) and forward(257), every position, through the CUDA-core
@@ -104,14 +121,14 @@ Phases, each of which must pass or the script exits non-zero:
    plain version at bf16 ``atol=3e-2``; then ``torch.profiler``'s device
    time of that prefill and of four more decode steps on the main run's
    cache;
-15. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
+16. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
    8-16 prompt tokens, 16 new tokens each, through 4 slots.
 
-Each main path (FD, DC, join, offline, ingest, service, the LM prefill and
-decode, the engine) runs with every kernel's launch count at 0, read just
-after; the
-counts must be as ``PATH_LAUNCHES`` says, and the role scan, the semijoin
-and the CUDA-core flash kernel lie on none of them.  The line before the
+Each main path (FD, DC, join, offline, ingest, service, the sharded
+Daisy, the LM prefill and decode, the engine) runs with every kernel's
+launch count at 0, read just after; the counts must be as
+``PATH_LAUNCHES`` says, and the role scan, the semijoin and the CUDA-core
+flash kernel lie on none of them.  The line before the
 last is a JSON object describing each kernel, its launches summed over
 the paths and given per path; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA
@@ -177,6 +194,13 @@ JOIN_CAPACITY = 1 << 24
 SERIAL_ROWS, SERIAL_CHUNK, SERIAL_QUERIES = 8_000, 1_024, 12
 INGEST_ROWS, INGEST_CHUNK, INGEST_APPENDS = 131_072, 16_384, 4
 SERVICE_ROWS, SERVICE_CHUNK, SERVICE_REQUESTS = 131_072, 8_192, 400
+# sharded detection: fig_dist_detect's relation (its region-keyed DC and FD)
+# at 131,072 rows over 4,096 regions, its shard counts and strip size; a
+# 90%-one-region copy; the mesh-configured Daisy at 16 shards; the timing
+# at 1,048,576 rows over 32,768 regions
+DIST_ROWS, DIST_REGIONS, DIST_SHARDS, DIST_STRIP = 131_072, 4_096, (2, 4, 8, 16), 256
+DIST_SKEW_SHARDS, DIST_DAISY_SHARDS = 8, 16
+DIST_BIG_ROWS, DIST_BIG_REGIONS = 1_048_576, 32_768
 # Launches each main path must make (None: at least one); a kernel not
 # named launches none there.  dc_role_scan and semijoin lie on no path:
 # only their kernels.ops entry points call them.  The LM prefill's 36
@@ -185,7 +209,7 @@ SERVICE_ROWS, SERVICE_CHUNK, SERVICE_REQUESTS = 131_072, 8_192, 400
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
     "ingest": {"dc_pair_scan": None}, "service": {"dc_pair_scan": None},
-    "lm": {"flash_attention_wgmma": 36}, "engine": {},
+    "dist": {"dc_pair_scan": None}, "lm": {"flash_attention_wgmma": 36}, "engine": {},
 }
 
 
@@ -1641,6 +1665,322 @@ def service_phase(dev):
 
 
 # ------------------------------------------------------------------ phase 14
+def dist_relation(n, n_regions, device, skew=False, seed=13):
+    """fig_dist_detect's relation (``benchmarks/fig_dist_detect.py``): orders
+    whose price and discount are monotone-consistent within a region, with
+    noise that plants inversions inside regions; ``orderkey`` is the region.
+    ``skew`` puts 90% of the rows in region 0.  Every rule attribute is in
+    the overlay (the benchmark's omits region and orderkey), so that a
+    ``Daisy`` can repair them."""
+    import numpy as np
+
+    from repro_torch.core.relation import make_relation
+
+    rng = np.random.default_rng(seed)
+    region = rng.integers(0, n_regions, n).astype(np.int32)
+    price = rng.uniform(1000.0, 5000.0, n).astype(np.float32)
+    discount = (6000.0 - price + rng.normal(0, 150.0, n)).astype(np.float32)
+    supp = rng.integers(0, 64, n).astype(np.int32)
+    if skew:
+        region[rng.random(n) < 0.9] = 0
+    return make_relation(
+        {"region": region, "extended_price": price, "discount": discount,
+         "orderkey": region, "suppkey": supp},
+        overlay=["region", "extended_price", "discount", "orderkey", "suppkey"], k=8,
+        rules=["dc_rpd", "fd_rs"], device=device,
+    )
+
+
+def dist_rules():
+    from repro_torch.core.constraints import DC, FD, Atom
+
+    dc = DC("dc_rpd", [Atom("region", "==", "region"),
+                       Atom("extended_price", "<", "extended_price"),
+                       Atom("discount", ">", "discount")])
+    return dc, FD("fd_rs", "orderkey", "suppkey")
+
+
+def dc_flat(det):
+    return (det.t1_count, *det.t1_stat, det.t2_count, *det.t2_stat)
+
+
+def fd_flat(det):
+    return tuple(getattr(det, f) for f in ("violated", "rhs_cand", "rhs_count", "lhs_cand",
+                                            "lhs_count", "overflow"))
+
+
+def same_fd(got, want, what: str) -> None:
+    import torch
+
+    for name, g, w in zip(("violated", "rhs_cand", "rhs_count", "lhs_cand", "lhs_count",
+                           "overflow"), fd_flat(got), fd_flat(want)):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            fail(f"{what}: FD {name} differs")
+
+
+def dist_equivalence(dev):
+    """(a): sharded == dense at 2, 4, 8 and 16 shards (the DC counts and
+    stats, the FD candidate tables), the one sharded launch == its plain
+    version, fig_dist_detect's gates, and a skewed copy through an overflow
+    retry."""
+    import torch
+
+    from repro_torch.core.detect import detect_dc, detect_fd
+    from repro_torch.dist.detect import detect_dc_sharded_info, detect_fd_sharded_info
+    from repro_torch.dist.hints import one_device_mesh
+    from repro_torch.kernels import dc_pairs
+
+    mesh = one_device_mesh(dev)
+    dc, fd = dist_rules()
+    rel = dist_relation(DIST_ROWS, DIST_REGIONS, dev)
+    timed = {}
+    dense = detect_dc(rel, dc, rel.valid, rel.valid)
+    dense_fd = detect_fd(rel, fd, rel.valid, k=8)
+    dense_pairs = rel.capacity ** 2
+    prev, err = dense_pairs, 0.0
+    for shards in DIST_SHARDS:
+        before = dc_pairs.LAUNCHES["dc_pair_scan"]
+        det, info = detect_dc_sharded_info(rel, dc, rel.valid, rel.valid, mesh, n_shards=shards,
+                                           strip_rows=DIST_STRIP)
+        if dc_pairs.LAUNCHES["dc_pair_scan"] != before + 1:
+            fail(f"dist {shards} shards: {dc_pairs.LAUNCHES['dc_pair_scan'] - before} launches")
+        with dc_pairs.plain_version():
+            plain, _ = detect_dc_sharded_info(rel, dc, rel.valid, rel.valid, mesh,
+                                              n_shards=shards)
+        torch.cuda.synchronize()
+        err = max(err, same_flat(dc_flat(det), dc_flat(plain),
+                                 f"dist {shards} shards, the sharded launch"))
+        same_flat(dc_flat(det), dc_flat(dense), f"dist {shards} shards, sharded vs dense DC")
+        det_fd, _ = detect_fd_sharded_info(rel, fd, rel.valid, mesh, k=8, n_shards=shards,
+                                           strip_rows=DIST_STRIP)
+        same_fd(det_fd, dense_fd, f"dist {shards} shards, sharded vs dense")
+        if not info.sharded_pairs < dense_pairs or info.sharded_pairs > prev:
+            fail(f"dist {shards} shards: pairs {info.sharded_pairs} after {prev} "
+                 f"(dense {dense_pairs})")
+        prev = info.sharded_pairs
+        if sum(info.per_shard_strips) < -(-info.routed_rows // DIST_STRIP):
+            fail(f"dist {shards} shards: strip coverage {sum(info.per_shard_strips)}")
+        if shards == DIST_DAISY_SHARDS:  # the sharded detect, kernel and plain, timed
+
+            def sharded():
+                return detect_dc_sharded_info(rel, dc, rel.valid, rel.valid, mesh,
+                                              n_shards=shards)
+
+            timed = dict(rows=DIST_ROWS, n_shards=shards, detect_ms=cuda_ms(sharded, 3))
+            with dc_pairs.plain_version():
+                timed["plain_detect_ms"] = cuda_ms(sharded, 1)
+            log(f"dist {DIST_ROWS} rows, {shards} shards: the sharded DC detect "
+                f"{timed['detect_ms']:.3f} ms through the kernel, "
+                f"{timed['plain_detect_ms']:.3f} ms through the plain version")
+        log(f"dist {DIST_ROWS} rows, {DIST_REGIONS} regions, {shards} shards: sharded == dense "
+            f"(DC counts and stats, FD candidates), the launch == plain; pairs "
+            f"{info.sharded_pairs} ({dense_pairs / info.sharded_pairs:.1f}x fewer), tiles "
+            f"{info.tiles_launched} of {info.tiles_total}, retries {info.retries}, max strips "
+            f"a shard {max(info.per_shard_strips)}")
+    skewed = dist_relation(DIST_ROWS, DIST_REGIONS, dev, skew=True)
+    det, info = detect_dc_sharded_info(skewed, dc, skewed.valid, skewed.valid, mesh,
+                                       n_shards=DIST_SKEW_SHARDS)
+    same_flat(dc_flat(det), dc_flat(detect_dc(skewed, dc, skewed.valid, skewed.valid)),
+              "dist skewed copy, sharded vs dense DC")
+    det_fd, fd_info = detect_fd_sharded_info(skewed, fd, skewed.valid, mesh, k=8,
+                                             n_shards=DIST_SKEW_SHARDS)
+    same_fd(det_fd, detect_fd(skewed, fd, skewed.valid, k=8), "dist skewed copy")
+    if info.retries < 1 or fd_info.retries < 1:
+        fail(f"dist skewed copy: retries {info.retries} (DC), {fd_info.retries} (FD)")
+    log(f"dist skewed copy (90% of rows in region 0), {DIST_SKEW_SHARDS} shards: sharded == "
+        f"dense after {info.retries} retries (factor {info.capacity_factor}), rows a shard "
+        f"{info.per_shard_rows}")
+    return err, timed
+
+
+def dist_daisy(dev, mesh):
+    from repro_torch.core.executor import Daisy, DaisyConfig
+    from repro_torch.obs.trace import Tracer
+
+    dc, fd = dist_rules()
+    rel = dist_relation(DIST_ROWS, DIST_REGIONS, dev)
+    cfg = DaisyConfig(mesh=mesh, detect_shards=None if mesh is None else DIST_DAISY_SHARDS,
+                      expected_queries=len(dist_queries()))
+    return Daisy({"t": rel}, {"t": [dc, fd]}, cfg, tracer=Tracer(), device=dev), (dc, fd)
+
+
+def dist_queries():
+    import numpy as np
+
+    return (range_queries("extended_price", np.linspace(1000, 5000, 7), True)
+            + range_queries("orderkey", np.array([0, 512, 1536]), False))
+
+
+def dist_run(dev, mesh):
+    daisy, rules = dist_daisy(dev, mesh)
+    t0 = time.perf_counter()
+    states = [daisy_state(daisy, daisy.execute(q), rules) for q in dist_queries()]
+    sync(dev)
+    return daisy, states, time.perf_counter() - t0
+
+
+def dist_daisy_phase(dev):
+    """(b): a mesh-configured ``Daisy`` (one-device mesh on the card,
+    ``detect_shards=16``) against the dense ``Daisy`` query by query, one
+    pair-scan launch a sharded DC detect; then the same sharded run on the
+    CPU, state for state."""
+    from repro_torch.dist.hints import one_device_mesh
+
+    reset_counts()
+    daisy, states, wall = dist_run(dev, one_device_mesh(dev))
+    counts = read_counts()
+    scans = [e for e in daisy.tracer.events()
+             if e.name == "dist.shard_scan" and "tiles_launched" in e.attrs]
+    if counts["dc_pair_scan"] != len(scans) or not scans:
+        fail(f"dist Daisy: {counts['dc_pair_scan']} launches for {len(scans)} sharded DC "
+             "detects")
+    _, dense, dense_wall = dist_run(dev, None)
+    for i, (s, d) in enumerate(zip(states, dense)):
+        same_state({k: v for k, v in s.items() if k != "steps"},
+                   {k: v for k, v in d.items() if k != "steps"}, f"dist Daisy query {i}")
+        if [x["mode"] for x in s["steps"]] != [x["mode"] for x in d["steps"]]:
+            fail(f"dist Daisy query {i}: step modes differ")
+        for x in s["steps"]:
+            if x["mode"] != "skipped" and x["detect_path"] != "sharded":
+                fail(f"dist Daisy query {i}: a {x['mode']} step on the {x['detect_path']} path")
+    if set(daisy.sharded_info) != {("t", "dc_rpd"), ("t", "fd_rs")}:
+        fail(f"dist Daisy: sharded_info holds {sorted(daisy.sharded_info)}")
+    observed = {r: daisy.cost[("t", r)].df_observed for r in ("dc_rpd", "fd_rs")}
+    if any(v is None for v in observed.values()):
+        fail(f"dist Daisy: observed detect costs {observed}")
+    modes = [[x["mode"] for x in s["steps"]] for s in states]
+    log(f"dist Daisy {DIST_ROWS} rows, {DIST_DAISY_SHARDS} shards: == the dense Daisy on "
+        f"{len(states)} queries (answers, overlays, checked bits, versions, modes {modes}); "
+        f"{len(scans)} sharded DC detects, {counts['dc_pair_scan']} pair-scan launches; "
+        f"sharded run {wall:.3f} s, dense run {dense_wall:.3f} s; observed detect costs "
+        f"{observed}")
+    _, cpu_states, cpu_wall = dist_run("cpu", one_device_mesh("cpu"))
+    for i, (a, b) in enumerate(zip(states, cpu_states)):
+        same_state(a, b, f"dist Daisy query {i} cuda vs cpu")
+    log(f"dist Daisy: the CPU run == the card's, state for state ({cpu_wall:.3f} s)")
+    return counts
+
+
+def sharded_bound(inp, counts, stats, block):
+    """``scan_bound``'s rule over the tiles the sharded launch runs: per
+    shard, the tiles of [0, hi) x [0, hi) that the block bounds cannot rule
+    out, for both roles; bytes of the routed inputs and outputs."""
+    import torch
+
+    from repro_torch.core.constraints import flip_op
+    from repro_torch.kernels import dc_pairs
+
+    l_cols, r_cols, ops, rs, cs, hi = (inp["l_cols"], inp["r_cols"], inp["ops"], inp["rs"],
+                                       inp["cs"], inp["hi"])
+    fl, fr, frs, fcs, nb_local = dc_pairs.shard_layout(l_cols, r_cols, rs, cs, block)
+    distinct, l_idx, r_idx = dc_pairs.distinct_columns(fl, fr)
+    nb = frs.shape[0] // block
+    b = [[dc_pairs._block_bounds(c, s, red, nb, block) for c in distinct]
+         for s, red in ((frs, "min"), (frs, "max"), (fcs, "min"), (fcs, "max"))]
+    pairs = 0
+    n_shards = rs.shape[0]
+    for role_ops, li, ri in ((ops, l_idx, r_idx), ([flip_op(o) for o in ops], r_idx, l_idx)):
+        for s in range(n_shards):
+            blk = slice(s * nb_local, s * nb_local + hi)
+            ok = torch.ones((hi, hi), dtype=torch.bool, device=rs.device)
+            for op, x, y in zip(role_ops, li, ri):
+                ok &= dc_pairs._tile_possible(op, b[0][x][blk, None], b[1][x][blk, None],
+                                              b[2][y][None, blk], b[3][y][None, blk])
+            pairs += int(ok.sum()) * block * block
+    violating = sum(int(c.sum()) for c in counts)
+    n_atoms = len(ops)
+    ops_count = pairs * n_atoms + violating * (n_atoms + 1)
+    in_bytes = sum(c.numel() * c.element_size() for c in dc_pairs.distinct_columns(
+        l_cols, r_cols)[0]) + 2 * rs.numel()
+    out_bytes = 2 * 4 * rs.numel() + sum(s.numel() * s.element_size() for s in stats)
+    return bound(ops_count, in_bytes + out_bytes)
+
+
+def dist_timing(dev):
+    """(c): at 1,048,576 rows and 32,768 regions, 16 shards: the shuffle, the
+    one sharded launch (the kernel alone by ``torch.profiler``), the whole
+    sharded detect and the dense detect, equal on the card; the launch's
+    bound by ``scan_bound``'s rule over the tiles it runs."""
+    import torch
+
+    from repro_torch.core.constraints import flip_op
+    from repro_torch.core.detect import _T1_REDUCE, detect_dc
+    from repro_torch.dist import detect as ddet
+    from repro_torch.dist.hints import one_device_mesh
+    from repro_torch.kernels import dc_pairs
+
+    mesh = one_device_mesh(dev)
+    dc, _ = dist_rules()
+    rel = dist_relation(DIST_BIG_ROWS, DIST_BIG_REGIONS, dev)
+    shards, block = DIST_DAISY_SHARDS, 256
+
+    def detect():
+        return ddet.detect_dc_sharded_info(rel, dc, rel.valid, rel.valid, mesh, n_shards=shards)
+
+    det, info = detect()
+    dense = detect_dc(rel, dc, rel.valid, rel.valid)
+    torch.cuda.synchronize()
+    same_flat(dc_flat(det), dc_flat(dense), f"dist {DIST_BIG_ROWS} rows: sharded vs dense DC")
+    # the routed inputs of the one launch, as detect_dc_sharded_info builds them
+    attrs = ["region", "extended_price", "discount"]
+    payload = [ddet._transport(rel.columns[a]) for a in attrs] + [rel.valid.to(torch.int32)] * 2
+    key = ddet._combine_keys([rel.columns["region"]])
+
+    def route():
+        return ddet._route(key, payload, rel.valid, mesh, shards, ddet.CAPACITY_FACTOR)
+
+    res, _, _ = route()
+    cols = [ddet._untransport(res.payload[..., i], rel.columns[a].dtype)
+            for i, a in enumerate(attrs)]
+    scope = (res.payload[..., -1] > 0) & res.valid
+    ops = [a.op for a in dc.atoms]
+    flipped = [flip_op(o) for o in ops]
+    red1, red2 = [_T1_REDUCE[o] for o in ops], [_T1_REDUCE[o] for o in flipped]
+    nb_local = -(-res.valid.shape[1] // block)
+    hi = min(nb_local, max(-(-max(info.per_shard_rows) // block), 1))
+    if shards * hi * hi != info.tiles_launched:
+        fail(f"dist timing: hi {hi} against {info.tiles_launched} tiles")
+    inp = dict(l_cols=cols, r_cols=cols, ops=ops, rs=scope, cs=scope, hi=hi)
+
+    def launch():
+        return dc_pairs.dc_pair_scan_sharded(cols, cols, ops, flipped, scope, scope, red1, red2,
+                                             block, hi)
+
+    before = dc_pairs.LAUNCHES["dc_pair_scan"]
+    t1c, t1s, t2c, t2s = launch()
+    launches = dc_pairs.LAUNCHES["dc_pair_scan"] - before
+    torch.cuda.synchronize()
+    if launches != 1:
+        fail(f"dist timing: the sharded scan made {launches} launches")
+    launch_ms = cuda_ms(launch, 3)
+    kernel_ms = scan_kernel_ms(launch, 3)
+    shuffle_ms = cuda_ms(route, 3)
+    detect_ms = cuda_ms(detect, 3)
+    dense_ms = cuda_ms(lambda: detect_dc(rel, dc, rel.valid, rel.valid), 2)
+    bound_ms, bound_by, detail = sharded_bound(inp, [t1c, t2c], list(t1s) + list(t2s), block)
+    log(f"dist {DIST_BIG_ROWS} rows, {DIST_BIG_REGIONS} regions, {shards} shards: sharded == "
+        f"dense; the shuffle {shuffle_ms:.3f} ms (retries {info.retries}), the one sharded "
+        f"launch {launch_ms:.3f} ms a call (the kernel alone {kernel_ms:.3f} ms of device time, "
+        f"one launch, {info.tiles_launched} tiles of {info.tiles_total}), "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {detail}); the whole sharded detect "
+        f"{detect_ms:.3f} ms, the dense detect {dense_ms:.3f} ms "
+        f"({info.dense_pairs / info.sharded_pairs:.1f}x the pairs)")
+    return dict(rows=DIST_BIG_ROWS, regions=DIST_BIG_REGIONS, n_shards=shards,
+                tiles=info.tiles_launched, kernel_ms=kernel_ms, ms=launch_ms,
+                bound_ms=bound_ms, bound_by=bound_by, shuffle_ms=shuffle_ms,
+                detect_ms=detect_ms, dense_detect_ms=dense_ms)
+
+
+def dist_phase(dev):
+    """Phase 14: sharded violation detection on the card (a)-(c)."""
+    err, small = dist_equivalence(dev)
+    counts = dist_daisy_phase(dev)
+    timing = dist_timing(dev)
+    timing["at_131072"] = small
+    return counts, err, timing
+
+
+# ------------------------------------------------------------------ phase 15
 @contextlib.contextmanager
 def captured_attention():
     """Within this context every ``kops.flash_attention`` call records its
@@ -1876,7 +2216,7 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------------ phase 15
+# ------------------------------------------------------------------ phase 16
 def engine_phase(dev, cfg, params):
     import numpy as np
     import torch
@@ -1973,6 +2313,8 @@ def main() -> int:
     serial_phase(dev)
     dc_measured["ingest_timing"] = drive("ingest", lambda: ingest_phase(dev))
     drive("service", lambda: service_phase(dev))
+    paths["dist"], dist_err, dc_measured["sharded"] = dist_phase(dev)
+    dc_measured["max_abs_err"] = max(dc_measured["max_abs_err"], dist_err)
     paths["lm"], cfg, params = lm_phase(dev)
     drive("engine", lambda: engine_phase(dev, cfg, params))
     for path, counts in paths.items():

@@ -1,7 +1,7 @@
 """repro_torch — the PyTorch/CUDA port of Daisy, beside the JAX package.
 
 The port mirrors ``repro``'s layout (``core``, ``kernels``, ``obs``,
-``data``, ``service``, ``launch``, ``models``, ``serve``) and is held
+``data``, ``dist``, ``service``, ``launch``, ``models``, ``serve``) and is held
 against it: the same numpy inputs give the same answers, overlays,
 checked bits, step reports and scope versions.  It imports torch and
 numpy only.  Its entry points (``make_relation``, ``Daisy``, the

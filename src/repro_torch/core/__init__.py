@@ -1,8 +1,8 @@
 """Daisy core in PyTorch: query-driven denial-constraint cleaning.
 
 Public API re-exports (the slices ported so far: SP, group-by and join
-queries with FD and DC rules, the offline baseline, streaming ingest and
-background increments).
+queries with FD and DC rules, the offline baseline, streaming ingest,
+background increments and sharded detection on a ``dist.hints.Mesh``).
 """
 
 from repro_torch.core.accuracy import Accuracy, repair_accuracy

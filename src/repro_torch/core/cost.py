@@ -1,9 +1,8 @@
 """The cost model (paper §5.2): incremental vs full cleaning, online.
 
-The port's own copy of ``repro.core.cost`` (pure Python).  The port has no
-sharded detection yet, so ``Daisy.sharded_info`` stays empty and
-``df_observed`` stays None: the sharded pricing below is carried for the
-background cleaner's priority model and prices nothing today.
+The port's own copy of ``repro.core.cost`` (pure Python).  A
+mesh-configured ``Daisy`` feeds each sharded detect's routing through
+``observe_detect_cost``; without a mesh ``df_observed`` stays None.
 
 Implements the two cost expressions and the online Inequality-(1) check that
 drives the strategy switch seen in Figs. 9 and 14 ("Daisy initially applies

@@ -6,10 +6,11 @@ same pass yields the candidate (value, frequency) tables.  DC detection is
 the partitioned theta-join, one fused both-role scan
 (``kernels.ops.dc_pair_scan``) — the CUDA kernel on the card.
 
-Every dense entry of the reference is here: whole-grid scans, strip and
-worklist scans (the background cleaner's strip increments) and col-range
-scans (streaming ingest's deltas, DESIGN.md §12).  Only the sharded path
-waits: a ``mesh`` raises ``NotImplementedError``.
+Every entry of the reference is here: whole-grid scans, strip and
+worklist scans (the background cleaner's strip increments), col-range
+scans (streaming ingest's deltas, DESIGN.md §12), and the sharded path
+(``detect_auto`` with a ``mesh``, DESIGN.md §8), which routes rows by the
+rule's equality key (``repro_torch.dist.detect``).
 """
 
 from __future__ import annotations
@@ -144,12 +145,34 @@ def dc_violation_count(result: DCDetectResult) -> torch.Tensor:
     return result.t1_count.sum(dtype=torch.int32)
 
 
+# ------------------------------------------------------------------ dispatch
+# The seam between the dense scans above and the sharded path in
+# repro_torch.dist.detect (DESIGN.md §8).  The dist imports are lazy: the
+# sharded module imports this one.
+
+
+def will_shard(rule, mesh, n_shards: int | None = None) -> bool:
+    """True when ``detect_auto`` takes the sharded path for ``rule`` on
+    ``mesh``: the single source of truth for that decision."""
+    from repro_torch.core.constraints import equality_key_attrs
+
+    if mesh is None or not equality_key_attrs(rule):
+        return False
+    if n_shards is not None:
+        return n_shards >= 2
+    from repro_torch.dist.detect import default_n_shards
+
+    return default_n_shards(mesh) >= 2
+
+
 class DetectResult(NamedTuple):
-    """What a detection dispatch returns: the rule-shaped detection and the
-    sharded routing info (always ``None``: only the dense path is ported)."""
+    """What a detection dispatch returns: the rule-shaped detection
+    (``FDDetectResult`` or ``DCDetectResult``) and the ``ShardedDetectInfo``
+    of the routing when the sharded path ran (``None`` on the dense path),
+    which the executor feeds to the cost model (DESIGN.md §10)."""
 
     detection: object  # FDDetectResult | DCDetectResult
-    info: object | None
+    info: object | None  # dist.detect.ShardedDetectInfo | None
 
 
 def detect_auto(
@@ -161,22 +184,52 @@ def detect_auto(
     k: int | None = None,
     block: int = 256,
     mesh=None,
+    n_shards: int | None = None,
     row_blocks: Tuple[int, int] | None = None,
     col_blocks: Tuple[int, int] | None = None,
     row_block_ids=None,
     col_block_ids=None,
     encode: bool = True,
+    strip_rows: int | None = None,
+    tracer=None,
 ) -> DetectResult:
-    """The detection entry point, dense branch: dispatch ``rule`` (FD or DC)
-    to its scan.  A ``mesh`` asks for the sharded path, which the port does
-    not have yet."""
-    if mesh is not None:
-        raise NotImplementedError("sharded detection is not ported yet")
+    """The detection entry point: dispatch ``rule`` (FD or DC) to the dense
+    or the sharded scan and return a ``DetectResult``.
+
+    With a ``mesh`` and a rule that has an equality key (``will_shard``),
+    rows route through ``dist.shuffle.shuffle_by_key`` and scan per logical
+    shard, bit-identical to the dense result, with the routing's
+    ``ShardedDetectInfo`` attached.  The sharded path ignores
+    ``row_blocks`` / ``col_blocks`` / ``*_block_ids`` (strip locality does
+    not survive the shuffle; its scopes already shrink to the strip's rows
+    and its shards scan only their occupied blocks) and ``encode``;
+    ``strip_rows`` feeds its per-shard strip report (DESIGN.md §11) and
+    ``tracer`` its ``dist.*`` spans (DESIGN.md §13).
+
+    FD rules use ``row_scope`` as the group-by scope and ``k`` for the
+    candidate width; ``col_scope`` (required), ``block`` and the worklist
+    arguments are DC-only."""
     if isinstance(rule, FD):
+        if will_shard(rule, mesh, n_shards):
+            from repro_torch.dist.detect import detect_fd_sharded_info
+
+            det, info = detect_fd_sharded_info(
+                rel, rule, row_scope, mesh, k=k, n_shards=n_shards,
+                strip_rows=strip_rows, tracer=tracer,
+            )
+            return DetectResult(det, info)
         return DetectResult(detect_fd(rel, rule, row_scope, k=k), None)
     if isinstance(rule, DC):
         if col_scope is None:
             raise ValueError("detect_auto on a DC requires col_scope")
+        if will_shard(rule, mesh, n_shards):
+            from repro_torch.dist.detect import detect_dc_sharded_info
+
+            det, info = detect_dc_sharded_info(
+                rel, rule, row_scope, col_scope, mesh, n_shards=n_shards,
+                block=block, strip_rows=strip_rows, tracer=tracer,
+            )
+            return DetectResult(det, info)
         return DetectResult(
             detect_dc(
                 rel, rule, row_scope, col_scope, block=block,
@@ -188,3 +241,71 @@ def detect_auto(
         )
     raise TypeError(f"detect_auto: unsupported rule type {type(rule).__name__}")
 
+
+
+# Deprecated thin aliases (the reference's pre-§12 API): prefer ``detect_auto``.
+
+
+def detect_dc_auto_info(
+    rel: Relation,
+    dc: DC,
+    row_scope: torch.Tensor,
+    col_scope: torch.Tensor,
+    block: int = 256,
+    mesh=None,
+    n_shards: int | None = None,
+    row_blocks: Tuple[int, int] | None = None,
+    strip_rows: int | None = None,
+):
+    """Deprecated: ``detect_auto(rel, dc, ...)`` as a ``(detection, info)``
+    pair."""
+    return tuple(
+        detect_auto(
+            rel, dc, row_scope, col_scope, block=block, mesh=mesh,
+            n_shards=n_shards, row_blocks=row_blocks, strip_rows=strip_rows,
+        )
+    )
+
+
+def detect_dc_auto(
+    rel: Relation,
+    dc: DC,
+    row_scope: torch.Tensor,
+    col_scope: torch.Tensor,
+    block: int = 256,
+    mesh=None,
+    n_shards: int | None = None,
+) -> DCDetectResult:
+    """Deprecated: ``detect_auto(rel, dc, ...).detection``."""
+    return detect_auto(
+        rel, dc, row_scope, col_scope, block=block, mesh=mesh, n_shards=n_shards
+    ).detection
+
+
+def detect_fd_auto_info(
+    rel: Relation,
+    fd: FD,
+    scope: torch.Tensor,
+    k: int | None = None,
+    mesh=None,
+    n_shards: int | None = None,
+    strip_rows: int | None = None,
+):
+    """Deprecated: ``detect_auto(rel, fd, ...)`` as a ``(detection, info)``
+    pair."""
+    return tuple(
+        detect_auto(rel, fd, scope, k=k, mesh=mesh, n_shards=n_shards,
+                    strip_rows=strip_rows)
+    )
+
+
+def detect_fd_auto(
+    rel: Relation,
+    fd: FD,
+    scope: torch.Tensor,
+    k: int | None = None,
+    mesh=None,
+    n_shards: int | None = None,
+) -> FDDetectResult:
+    """Deprecated: ``detect_auto(rel, fd, ...).detection``."""
+    return detect_auto(rel, fd, scope, k=k, mesh=mesh, n_shards=n_shards).detection

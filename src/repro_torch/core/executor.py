@@ -33,8 +33,14 @@ points into the instance:
   scan over those strips' row blocks);
 * ``lock`` serializes them with ``execute`` for the query service.
 
-Sharded detection waits for a later slice: a config with a ``mesh`` raises
-``NotImplementedError``, and ``sharded_info`` stays empty.
+With ``DaisyConfig(mesh=..., detect_shards=n)`` every FD and DC step whose
+rule has an equality key detects over the key-routed shuffle
+(DESIGN.md §8, ``repro_torch.dist.detect``): bit-identical results,
+``StepReport.detect_path == "sharded"``, the routing kept in
+``sharded_info`` and its observed cost fed to the rule's cost model.
+Ingest deltas stay dense (a delta is small, and the sharded path has no
+partner-side restriction).  The mesh is ``repro_torch.dist.hints.Mesh``
+over the engine's own device: logical shards on one device.
 
 All state lives on one device, the ``device`` the engine was built for
 (``"cuda"`` unless the caller asks for the CPU).
@@ -51,7 +57,7 @@ import torch
 
 from repro_torch.core import stats as statsmod
 from repro_torch.core.constraints import DC, FD
-from repro_torch.core.cost import CostModel
+from repro_torch.core.cost import CostModel, sharded_detect_cost
 from repro_torch.core.detect import detect_auto, detect_fd
 from repro_torch.core.ledger import TABLE_ROWS_RULE, WorkLedger
 from repro_torch.core.operators import (
@@ -111,7 +117,9 @@ class DaisyConfig:
     collect_stats: bool = True
     max_relax_iters: Optional[int] = None
     lemma1_fast_path: bool = False
-    # sharded detection; not ported yet, so a mesh raises
+    # sharded detection (DESIGN.md §8): with a mesh (dist.hints.Mesh over
+    # the engine's device), equality-keyed rules detect over shuffle_by_key
+    # in detect_shards logical shards (None -> the mesh's data extent)
     mesh: Optional[object] = None
     detect_shards: Optional[int] = None
     # work-ledger strip size: rows per partition strip (None -> dc_block),
@@ -205,14 +213,19 @@ class Daisy:
         self.rules = {t: list(rs) for t, rs in rules.items()}
         self.config = config or DaisyConfig()
         if self.config.mesh is not None:
-            raise NotImplementedError("sharded detection is not ported yet")
+            from repro_torch.dist.hints import holds
+
+            if not holds(self.config.mesh, self.device):
+                raise ValueError(
+                    f"the detect mesh {self.config.mesh!r} does not hold the "
+                    f"engine's device {self.device}"
+                )
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.stats: Dict[Tuple[str, str], object] = {}
         self.cost: Dict[Tuple[str, str], CostModel] = {}
         self._clean_version = 0
-        # the routing of the last sharded detect per rule: the sharded path
-        # is not ported yet, so this stays empty (the background cleaner's
-        # priority model reads it)
+        # the routing of the last sharded detect per rule (the background
+        # cleaner's priority model reads it)
         self.sharded_info: Dict[Tuple[str, str], object] = {}
         self.detect_calls = 0
         self.repair_calls = 0
@@ -406,6 +419,11 @@ class Daisy:
         return {key: cm.should_switch_to_full() for key, cm in self.cost.items()}
 
     # ----------------------------------------------- ledger and increments
+    def _detect_mesh(self, step: CleanStep):
+        """The mesh to detect on for this step: the configured mesh when the
+        planner marked the rule shardable, else None (dense scan)."""
+        return self.config.mesh if step.shardable else None
+
     def _rule_named(self, table: str, rule_name: str):
         for rule in self.rules.get(table, ()):
             if rule.name == rule_name:
@@ -650,8 +668,10 @@ class Daisy:
             row_block_ids = self._active_blocks(row_scope)
             col_blocks = (ent.lo // block, -(-ent.hi // block))
             rep.answer_size += _count(fresh & rel.valid)
+            # dense scan only: the sharded path has no partner-side
+            # restriction, and a delta is small by construction
             rel, det = self._dc_detect_repair(
-                rel, dc, row_scope, fresh, cm, rep,
+                rel, dc, row_scope, fresh, None, cm, rep,
                 col_blocks=col_blocks, row_block_ids=row_block_ids,
             )
             rep.repaired += _count(((det.t1_count > 0) | (det.t2_count > 0)) & row_scope)
@@ -720,6 +740,7 @@ class Daisy:
             if cm:
                 cm.record(rep.answer_size, rep.extra, 0.0, 0)
             return
+        mesh = self._detect_mesh(step)
         self.detect_calls += 1
         rep.detect_pairs = _count(scope)  # group-by is O(scope)
         self.detect_pairs += rep.detect_pairs
@@ -727,7 +748,14 @@ class Daisy:
             "clean.detect", rule=fd.name, table=table, mode=rep.mode,
             pairs=rep.detect_pairs,
         ) as sp:
-            det, _ = detect_auto(rel, fd, scope, k=self.config.k)
+            det, sinfo = detect_auto(
+                rel, fd, scope, k=self.config.k,
+                mesh=mesh, n_shards=self.config.detect_shards,
+                strip_rows=self.ledger.strip_rows, tracer=self.tracer,
+            )
+            if sinfo is not None:
+                rep.detect_path = "sharded"
+                self._observe_sharded(table, fd.name, sinfo, cm)
             sp.set(path=rep.detect_path)
         self.repair_calls += 1
         with self.tracer.span("clean.repair", rule=fd.name, table=table) as sp:
@@ -745,15 +773,25 @@ class Daisy:
                 cm.mark_switched()
         report.steps.append(rep)
 
+    def _observe_sharded(self, table: str, rule_name: str, info, cm) -> None:
+        """Record a sharded routing's ``ShardedDetectInfo`` and feed its
+        observed cost to the rule's cost model, so the full/partial decision
+        and the background priority model (DESIGN.md §10) price the path
+        the executor takes."""
+        self.sharded_info[(table, rule_name)] = info
+        if cm is not None:
+            cm.observe_detect_cost(sharded_detect_cost(info, n_rows=cm.n))
+
     # ------------------------------------------------------------- DC steps
-    def _dc_detect_repair(self, rel, dc, row_scope, col_scope, cm, rep,
+    def _dc_detect_repair(self, rel, dc, row_scope, col_scope, mesh, cm, rep,
                           col_blocks=None, row_block_ids=None, col_block_ids=None):
         """One detect + repair-candidate pass of the DC increment engine:
         the pair scan over ``row_scope x col_scope`` on the block worklist
         (``row_block_ids`` / ``col_block_ids``, or the col-block range
-        ``col_blocks`` of an ingest delta), the role fixes merged for the
-        ``row_scope`` rows; accounts the scanned comparison space and the
-        launch geometry.  Returns ``(rel, detect_result)``."""
+        ``col_blocks`` of an ingest delta) or, with a ``mesh``, over the
+        key-routed shards; the role fixes merged for the ``row_scope``
+        rows; accounts the scanned comparison space and the launch
+        geometry.  Returns ``(rel, detect_result)``."""
         table = rep.table
         self.detect_calls += 1
         rows = _count(row_scope & rel.valid)
@@ -766,12 +804,17 @@ class Daisy:
             row_block_ids=None if row_block_ids is None else len(row_block_ids),
             col_block_ids=None if col_block_ids is None else len(col_block_ids),
         ) as sp:
-            det, _ = detect_auto(
+            det, sinfo = detect_auto(
                 rel, dc, row_scope, col_scope, block=self.config.dc_block,
+                mesh=mesh, n_shards=self.config.detect_shards,
                 col_blocks=col_blocks,
                 row_block_ids=row_block_ids, col_block_ids=col_block_ids,
+                strip_rows=self.ledger.strip_rows, tracer=self.tracer,
                 encode=self.config.kernel_encodings,
             )
+            if sinfo is not None:
+                rep.detect_path = "sharded"
+                self._observe_sharded(table, dc.name, sinfo, cm)
             launched = int(det.tiles_launched)
             skipped = max(int(det.tiles_total) - launched, 0)
             rep.tiles_launched += launched
@@ -873,11 +916,12 @@ class Daisy:
                 cm.record(rep.answer_size, 0, 0.0, 0)
             return
 
+        mesh = self._detect_mesh(step)
         col_scope = rel.valid
         if mode == "incremental":
             row_block_ids = self._active_blocks(row_scope)
         rel, det = self._dc_detect_repair(
-            rel, dc, row_scope, col_scope, cm, rep, row_block_ids=row_block_ids,
+            rel, dc, row_scope, col_scope, mesh, cm, rep, row_block_ids=row_block_ids,
         )
         repaired = (det.t1_count > 0) | (det.t2_count > 0)
         rep.repaired = _count(repaired & row_scope)
@@ -887,7 +931,7 @@ class Daisy:
             # strip [rest x answer], restricted to the answer's active blocks
             partner_scope = rel.valid & ~answer
             rel, det2 = self._dc_detect_repair(
-                rel, dc, partner_scope, answer, cm, rep,
+                rel, dc, partner_scope, answer, mesh, cm, rep,
                 row_block_ids=self._active_blocks(partner_scope),
                 col_block_ids=self._active_blocks(answer),
             )

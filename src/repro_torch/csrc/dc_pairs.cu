@@ -33,8 +33,13 @@
 //     rows; the col tiles stream through a two-stage cp.async ring, and a
 //     tile whose partners all lie in the col scope skips the scope test;
 //   * the CTA's rows are one worklist row block (or a piece of it), and its
-//     col blocks one chunk of the worklist's col list: a 2-D grid of
-//     (row item, col chunk) sized to about DC_WAVES waves of resident CTAs.
+//     col blocks one chunk of the worklist's col list: a grid of (row item,
+//     col chunk, shard) sized to about DC_WAVES waves of resident CTAs.  A
+//     sharded launch (the logical shards of sharded detection, DESIGN.md
+//     §8) lays the shards out one after another, shard_blocks blocks each,
+//     and runs the worklist inside every shard: shard s pairs its blocks
+//     rid[i] + s * shard_blocks with cid[j] + s * shard_blocks only, so
+//     one launch scans the block diagonal of all shards.
 //     Chunks merge with integer atomics (add for counts, min for the keys),
 //     which commute, so the result is the same bits in any order;
 //   * the per-block bound pruning (the paper's partition pruning) is
@@ -96,6 +101,8 @@ struct ScanArgs {
   int32_t kernel_atoms;  // 1-4, or 8: the generic path
   int32_t chunks;        // col chunks (0: fill the card)
   int32_t pieces;        // CTAs a row block, set by the launch
+  int32_t n_shards;      // shards of a sharded launch (1: one grid)
+  int32_t shard_blocks;  // blocks a shard: shard s's block b is s * shard_blocks + b
 };
 
 __device__ __forceinline__ float as_f(int32_t bits, bool fl) {
@@ -391,7 +398,7 @@ __device__ __forceinline__ void scan_tile(RoleState<N, R>& st, const int32_t* bu
   else role_tile<N, R, V, kSplit, false, false>(st, buf, vbuf, len4, pbase, loc);
 }
 
-// grid: x = (worklist row block, piece of it), y = col chunk.
+// grid: x = (worklist row block, piece of it), y = col chunk, z = shard.
 template <int N, int R, int V, bool kBoth, bool kSplit>
 __global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) int32_t smem[];
@@ -399,7 +406,8 @@ __global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanAr
   const int T = blockDim.x, t = threadIdx.x;
   const int stage_words = (a.n_arrays + 1) * DC_TILE;
   uint32_t* list = reinterpret_cast<uint32_t*>(smem + 2 * stage_words);
-  const int rb = a.rid[blockIdx.x / a.pieces];
+  const int shard0 = (int)blockIdx.z * a.shard_blocks;
+  const int rb = a.rid[blockIdx.x / a.pieces] + shard0;
   const int piece = blockIdx.x % a.pieces;
   const int c0 = (int)((long long)blockIdx.y * a.ncols / gridDim.y);
   const int c1 = (int)((long long)(blockIdx.y + 1) * a.ncols / gridDim.y);
@@ -409,7 +417,7 @@ __global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanAr
   if (t == 0) s_items = 0;
   __syncthreads();
   for (int ci = c0 + t; ci < c1; ci += T) {
-    const int cb = a.cid[ci];
+    const int cb = a.cid[ci] + shard0;
     const bool p1 = role_possible(a, 0, rb, cb);
     const bool p2 = kBoth && role_possible(a, 1, rb, cb);
     if (p1 || p2)
@@ -432,7 +440,7 @@ __global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanAr
   auto load_tile = [&](int it, int stage) {
     const uint32_t e = list[it / nsub];
     const int sub = it % nsub;
-    const int cb = a.cid[e & 0x3fffffffu];
+    const int cb = a.cid[e & 0x3fffffffu] + shard0;
     const int first = sub * DC_TILE;
     const int len = min(DC_TILE, a.block - first);
     const int len4 = (len + V - 1) / V * V;
@@ -461,7 +469,7 @@ __global__ void __launch_bounds__(DC_MAX_THREADS, 1) dc_scan_kernel(const ScanAr
     __syncthreads();
     const uint32_t e = list[it / nsub];
     const int sub = it % nsub;
-    const int cb = a.cid[e & 0x3fffffffu];
+    const int cb = a.cid[e & 0x3fffffffu] + shard0;
     const int first = sub * DC_TILE;
     const int len4 = (min(DC_TILE, a.block - first) + V - 1) / V * V;
     const int32_t* buf = smem + stage * stage_words;
@@ -484,6 +492,8 @@ static int launch(ScanArgs* a, cudaStream_t stream) {
   const int pieces = (a->block + threads * R - 1) / (threads * R);
   const long long row_items = (long long)a->nrows * pieces;
   if (row_items > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (a->n_shards < 1 || a->n_shards > 65535 || a->shard_blocks < 0)
+    return (int)cudaErrorInvalidValue;
   const size_t stage_bytes = (size_t)(a->n_arrays + 1) * DC_TILE * sizeof(int32_t);
   const size_t smem_max = 2 * stage_bytes + DC_MAX_LIST * sizeof(uint32_t);
   cudaError_t err = cudaSuccess;
@@ -500,7 +510,8 @@ static int launch(ScanArgs* a, cudaStream_t stream) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem_max);
     if (err != cudaSuccess) return (int)err;
     const long long target = (long long)DC_WAVES * (per_sm > 0 ? per_sm : 1) * sms;
-    chunks = (target + row_items - 1) / row_items;
+    const long long items = row_items * a->n_shards;
+    chunks = (target + items - 1) / items;
   }
   chunks = std::max(chunks, (long long)(a->ncols + DC_MAX_LIST - 1) / DC_MAX_LIST);
   chunks = std::min(chunks, (long long)a->ncols);
@@ -510,7 +521,8 @@ static int launch(ScanArgs* a, cudaStream_t stream) {
   if (list_len > DC_MAX_LIST) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = 2 * stage_bytes + (size_t)list_len * sizeof(uint32_t);
   a->pieces = pieces;
-  kern<<<dim3((unsigned)row_items, (unsigned)chunks), threads, smem, stream>>>(*a);
+  kern<<<dim3((unsigned)row_items, (unsigned)chunks, (unsigned)a->n_shards), threads, smem,
+         stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

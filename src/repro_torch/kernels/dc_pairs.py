@@ -11,7 +11,7 @@ and per atom the min or max partner value, or the reduce identity of the
 column's own dtype when the count is 0.  The role scan is role t1 alone,
 for arbitrary left and right columns.
 
-Three pieces live here, beside each other:
+These pieces live here, beside each other:
 
 * ``dc_pair_scan`` and ``dc_role_scan`` — the wrappers.  On CPU tensors
   they run the plain versions; on CUDA tensors they launch
@@ -21,6 +21,10 @@ Three pieces live here, beside each other:
   compiled out) and count the launch in ``LAUNCHES``.  There is no fallback
   from the card to the plain version; ``plain_version()`` forces it
   explicitly for comparisons.
+* ``dc_pair_scan_sharded`` — the pair scan of every logical shard of
+  sharded detection in one launch (a third grid dimension over the
+  shards), and its plain version ``dc_pair_scan_sharded_plain``, the
+  plain pair scan shard by shard;
 * ``dc_pair_scan_plain`` and ``dc_role_scan_plain`` — the blocked loop of
   the reference oracle (``repro.kernels.ref.dc_role_scan``, twice for the
   pair scan), with XLA's min/max semantics: NaN propagates and -0.0 orders
@@ -506,6 +510,8 @@ class _ScanArgs(ctypes.Structure):
         ("kernel_atoms", ctypes.c_int32),
         ("chunks", ctypes.c_int32),
         ("pieces", ctypes.c_int32),
+        ("n_shards", ctypes.c_int32),
+        ("shard_blocks", ctypes.c_int32),
     ]
 
 
@@ -647,10 +653,14 @@ def finish_scan(inp: ScanInputs):
 
 
 def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
-               t1_reduces, t2_reduces, block, rid, cid, chunks=None):
+               t1_reduces, t2_reduces, block, rid, cid, chunks=None,
+               n_shards=1, shard_blocks=0):
     """Launch the kernel over the worklist ``rid x cid``: both roles, or role
     t1 alone when ``flipped`` is None.  ``chunks`` fixes the number of col
-    chunks, which changes no bit of the result (default: fill the card)."""
+    chunks, which changes no bit of the result (default: fill the card).
+    ``n_shards`` > 1 runs the worklist inside each of that many shards of
+    ``shard_blocks`` blocks, laid out one after another, in the same
+    launch."""
     inp = prepare_scan(l_cols, r_cols, ops, flipped, row_scope, col_scope,
                        t1_reduces, t2_reduces, block)
     both = flipped is not None
@@ -679,6 +689,7 @@ def _scan_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
     args.nb, args.block, args.n_distinct = inp.nb, block, len(inp.cols)
     args.n_atoms, args.kernel_atoms = n_atoms, plan.kernel_atoms
     args.chunks = int(chunks or 0)
+    args.n_shards, args.shard_blocks = int(n_shards), int(shard_blocks)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _library()
     launch = lib.dc_pair_scan_launch if both else lib.dc_role_scan_launch
@@ -729,3 +740,109 @@ def dc_role_scan(l_cols, r_cols, ops, row_scope, col_scope, reduces, block, rid,
                                   block, rid, cid)
     return _scan_cuda(l_cols, r_cols, ops, None, row_scope, col_scope, reduces, None,
                       block, rid, cid)
+
+
+# ------------------------------------------------------- the sharded launch
+def dc_pair_scan_sharded_plain(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+                               t1_reduces, t2_reduces, block, hi):
+    """The plain version of the sharded scan: ``dc_pair_scan_plain`` on each
+    shard's rows (row ``s`` of every ``(n_shards, cap)`` input) over its
+    block worklist ``[0, hi) x [0, hi)``, stacked.  Returns ``(t1_count,
+    t1_stats, t2_count, t2_stats)``, each ``(n_shards, cap)``."""
+    n_shards = row_scope.shape[0]
+    ids = np.arange(hi, dtype=np.int32)
+    per = []
+    for s in range(n_shards):
+        pick = _shard_picker(s)
+        per.append(dc_pair_scan_plain(
+            [pick(c) for c in l_cols], [pick(c) for c in r_cols], ops, flipped,
+            row_scope[s], col_scope[s], t1_reduces, t2_reduces, block, ids, ids,
+        ))
+    return _stack_shards(per)
+
+
+def _shard_picker(s: int):
+    """Row ``s`` of each distinct column, the same tensor for the same column
+    (the dedup of same-attribute atoms is by identity)."""
+    memo: dict = {}
+
+    def pick(c):
+        if id(c) not in memo:
+            memo[id(c)] = c[s]
+        return memo[id(c)]
+
+    return pick
+
+
+def _stack_shards(per):
+    t1c = torch.stack([p[0] for p in per])
+    t2c = torch.stack([p[2] for p in per])
+    t1s = [torch.stack([p[1][a] for p in per]) for a in range(len(per[0][1]))]
+    t2s = [torch.stack([p[3][a] for p in per]) for a in range(len(per[0][3]))]
+    return t1c, t1s, t2c, t2s
+
+
+def shard_layout(l_cols, r_cols, row_scope, col_scope, block):
+    """The sharded launch's flat layout: each shard's rows (row ``s`` of
+    every ``(n_shards, cap)`` input) padded to ``nb_local`` whole blocks,
+    scopes false in the padding, the shards one after another, so that
+    shard ``s``'s block ``b`` is flat block ``s * nb_local + b``.  Returns
+    ``(l_cols, r_cols, row_scope, col_scope, nb_local)``, flat; a column
+    shared by several atoms stays one tensor."""
+    cap = row_scope.shape[1]
+    nb_local = max(-(-cap // block), 1)
+    pad = nb_local * block - cap
+    flat: dict = {}
+
+    def lay(c):
+        if id(c) not in flat:
+            x = torch.nn.functional.pad(c, (0, pad)) if pad else c
+            flat[id(c)] = x.reshape(-1).contiguous()
+        return flat[id(c)]
+
+    return ([lay(c) for c in l_cols], [lay(c) for c in r_cols], lay(row_scope),
+            lay(col_scope), nb_local)
+
+
+def shard_unlayout(x: torch.Tensor, n_shards: int, cap: int) -> torch.Tensor:
+    """A flat per-row output of the sharded launch as ``(n_shards, cap)``."""
+    return x.reshape(n_shards, -1)[:, :cap]
+
+
+def _sharded_cuda(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+                  t1_reduces, t2_reduces, block, hi, chunks=None):
+    """One kernel launch for every shard over ``shard_layout``: the worklist
+    ``[0, hi) x [0, hi)`` run inside each shard."""
+    n_shards, cap = row_scope.shape
+    fl, fr, frs, fcs, nb_local = shard_layout(l_cols, r_cols, row_scope, col_scope, block)
+    ids = np.arange(hi, dtype=np.int32)
+    t1c, t1s, t2c, t2s = _scan_cuda(
+        fl, fr, ops, flipped, frs, fcs, t1_reduces, t2_reduces, block, ids, ids,
+        chunks=chunks, n_shards=n_shards, shard_blocks=nb_local,
+    )
+
+    def back(x):
+        return shard_unlayout(x, n_shards, cap)
+
+    return back(t1c), [back(x) for x in t1s], back(t2c), [back(x) for x in t2s]
+
+
+def dc_pair_scan_sharded(l_cols, r_cols, ops, flipped, row_scope, col_scope,
+                         t1_reduces, t2_reduces, block, hi):
+    """The fused both-role scan of every logical shard of sharded detection
+    (DESIGN.md §8): row ``s`` of each ``(n_shards, cap)`` input is shard
+    ``s``, and each shard scans its own block worklist ``[0, hi) x [0, hi)``
+    (the occupied slot prefix), its rows against its own partners only.
+    Returns ``(t1_count, t1_stats, t2_count, t2_stats)``, each
+    ``(n_shards, cap)``, equal shard for shard to ``dc_pair_scan`` on that
+    shard's rows.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel once for all shards (counted once, as ``dc_pair_scan``), or
+    the plain version inside ``plain_version()``."""
+    args = (l_cols, r_cols, ops, flipped, row_scope, col_scope,
+            t1_reduces, t2_reduces, block, hi)
+    nb_local = max(-(-row_scope.shape[1] // block), 1)
+    if not 1 <= hi <= nb_local:
+        raise ValueError(f"dc_pair_scan_sharded: hi {hi} outside [1, {nb_local}]")
+    if _use_plain(row_scope, "dc_pair_scan"):
+        return dc_pair_scan_sharded_plain(*args)
+    return _sharded_cuda(*args)

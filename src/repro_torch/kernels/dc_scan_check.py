@@ -9,6 +9,14 @@ sparse worklists.  ``check_case`` runs one case through the kernel and
 through the plain version and holds them bit for bit; ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` run every case, for the pair and the role scan.
 ``timing_inputs`` is the timing case both of them use.
+
+``SHARDED_CASES`` holds the sharded launch (``dc_pair_scan_sharded``, one
+launch over every logical shard of sharded detection) on routed layouts:
+2, 4, 16 shards, a shard with no row, ``hi`` below a shard's block count,
+int32 and float32 atoms, the generic path and a ragged block;
+``check_sharded_case`` holds the launch bit for bit against
+``dc_pair_scan_sharded_plain`` and ``sharded_timing_inputs`` is the 16-shard
+routing of a 131,072-row table.
 """
 
 from __future__ import annotations
@@ -250,3 +258,86 @@ def timing_inputs(dev) -> dict:
     ids = np.arange(nb, dtype=np.int32)
     return dict(l_cols=cols, r_cols=cols, ops=["<", ">"], rs=full, cs=full, block=256,
                 rid=ids, cid=ids)
+
+
+# ------------------------------------------------------------ sharded cases
+class ShardedCase(NamedTuple):
+    name: str
+    dtypes: tuple  # atom column dtypes (the same columns on both sides)
+    ops: tuple
+    n_shards: int
+    cap: int  # slots a shard
+    block: int = 256
+    # slots a shard holds rows in (a prefix, as the shuffle compacts them),
+    # as shares of ``cap``; a shard with 0 holds no row
+    occupancy: tuple = (0.5,)
+
+
+SHARDED_CASES: List[ShardedCase] = [
+    ShardedCase("2 shards, int32 == and f32 <,>", (I32, F32, F32), ("==", "<", ">"), 2, 3_000,
+                occupancy=(0.9, 0.6)),
+    ShardedCase("4 shards, hi below the shard's blocks, f32 <,>", (F32, F32), ("<", ">"), 4,
+                4_096, occupancy=(0.3, 0.2, 0.35, 0.1)),
+    ShardedCase("16 shards, one with no row, int32 <=,!=", (I32, I32), ("<=", "!="), 16, 2_048,
+                occupancy=(0.5, 0.0) + (0.45,) * 14),
+    ShardedCase("3 shards, block 100, ragged slots", (F32, I32), ("<", ">="), 3, 1_234,
+                block=100, occupancy=(1.0, 0.7, 0.2)),
+    ShardedCase("4 shards, 5 atoms (generic)", (I32, F32, I16, F32, I32),
+                ("==", "<", "!=", ">", "<="), 4, 1_500, occupancy=(0.5, 0.6, 0.4, 0.5)),
+    ShardedCase("16 shards of a 131,072-row routing, int32 == and f32 <,>", (I32, F32, F32),
+                ("==", "<", ">"), 16, 16_384, occupancy=(0.5,) * 16),
+]
+
+
+def sharded_case_inputs(case: ShardedCase, dev, seed: int = 0) -> dict:
+    """A routed layout on ``dev``: ``(n_shards, cap)`` columns whose rows
+    fill each shard's slot prefix (zeros past it), scopes inside the
+    prefix, and ``hi`` from the fullest shard."""
+    rng = np.random.default_rng(seed)
+    shape = (case.n_shards, case.cap)
+    occ = (list(case.occupancy) * case.n_shards)[: case.n_shards]
+    rows = [int(o * case.cap) for o in occ]
+    filled = np.arange(case.cap)[None, :] < np.asarray(rows)[:, None]
+    cols = []
+    for d in case.dtypes:
+        c = _column(rng, d, case.n_shards * case.cap, "small").reshape(shape)
+        cols.append((c * torch.from_numpy(filled).to(c.dtype)).to(dev))
+    rs = torch.from_numpy(filled & (rng.random(shape) < 0.9)).to(dev)
+    cs = torch.from_numpy(filled & (rng.random(shape) < 0.8)).to(dev)
+    nb_local = -(-case.cap // case.block)
+    hi = min(nb_local, max(-(-max(rows) // case.block), 1))
+    return dict(l_cols=cols, r_cols=cols, ops=list(case.ops), rs=rs, cs=cs,
+                block=case.block, hi=hi)
+
+
+def sharded_scan(inp: dict, chunks: Optional[int] = None):
+    """The sharded pair scan on a case's inputs as a flat tuple (counts, then
+    stats, role by role); ``chunks`` launches the kernel itself over that
+    many col chunks."""
+    ops = inp["ops"]
+    flipped = [FLIP[o] for o in ops]
+    red1, red2 = [T1_REDUCE[o] for o in ops], [T1_REDUCE[o] for o in flipped]
+    args = (inp["l_cols"], inp["r_cols"], ops, flipped, inp["rs"], inp["cs"], red1, red2,
+            inp["block"], inp["hi"])
+    if chunks:
+        out = dc_pairs._sharded_cuda(*args, chunks=chunks)
+    else:
+        out = dc_pairs.dc_pair_scan_sharded(*args)
+    t1c, t1s, t2c, t2s = out
+    return (t1c, *t1s, t2c, *t2s)
+
+
+def check_sharded_case(case: ShardedCase, dev):
+    """Run ``case`` through the sharded launch and through its plain version;
+    returns ``(error or None, kernel output, plain output)``."""
+    inp = sharded_case_inputs(case, dev)
+    got = sharded_scan(inp)
+    with dc_pairs.plain_version():
+        want = sharded_scan(inp)
+    torch.cuda.synchronize()
+    return same_bits(got, want), got, want
+
+
+def sharded_timing_inputs(dev) -> dict:
+    """The last sharded case: 16 shards of 16,384 slots, half full."""
+    return sharded_case_inputs(SHARDED_CASES[-1], dev)

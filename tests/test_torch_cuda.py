@@ -3,6 +3,8 @@ over every case of ``kernels/dc_scan_check.py``),
 ``semijoin`` (a hash build and probe) and the two flash-attention kernels
 (the tensor-core ``wgmma`` one for bf16 at head dims 64 and 128, the
 CUDA-core one for the rest) against their plain PyTorch versions, the
+sharded pair scan (one launch over every logical shard,
+``dc_scan_check.SHARDED_CASES``) and sharded detection against the CPU, the
 whole ``Daisy`` (SP and join queries) and the offline cleaner on the card
 against the same engines on the CPU, and the LM's prefill through the
 flash kernel against the same prefill through the plain version.  Every
@@ -169,6 +171,66 @@ def test_scan_kernel_check_case(card, case, both):
     err, _, _ = dsc.check_case(case, card, both)
     assert err is None, err
     assert dc_pairs.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("case", dsc.SHARDED_CASES, ids=[c.name for c in dsc.SHARDED_CASES])
+def test_sharded_scan_kernel_check_case(card, case):
+    """Every case of ``dc_scan_check.SHARDED_CASES``: one launch over 2, 4
+    or 16 shards (a shard with no row, hi below a shard's block count, a
+    ragged block, the generic path), bit for bit against
+    ``dc_pair_scan_sharded_plain``."""
+    before = dc_pairs.LAUNCHES["dc_pair_scan"]
+    err, _, _ = dsc.check_sharded_case(case, card)
+    assert err is None, err
+    assert dc_pairs.LAUNCHES["dc_pair_scan"] == before + 1
+
+
+def test_sharded_scan_same_bits_every_chunking(card):
+    inp = dsc.sharded_case_inputs(dsc.SHARDED_CASES[2], card)
+    first = dsc.sharded_scan(inp)
+    for chunks in (1, 5):
+        assert dsc.same_bits(dsc.sharded_scan(inp, chunks=chunks), first) is None, chunks
+
+
+def test_sharded_detect_on_card_matches_cpu(card):
+    """The sharded DC and FD detects of a mesh on the card against the same
+    on the CPU and the dense scan; one pair-scan launch for all shards."""
+    from repro_torch.core.detect import detect_dc, detect_fd
+    from repro_torch.dist.detect import detect_dc_sharded_info, detect_fd_sharded_info
+    from repro_torch.dist.hints import one_device_mesh
+
+    rng = np.random.default_rng(5)
+    n = 6_000
+    cols = {"region": rng.integers(0, 300, n).astype(np.int32),
+            "price": rng.uniform(1, 100, n).astype(np.float32),
+            "disc": rng.uniform(0, 1, n).astype(np.float32),
+            "supp": rng.integers(0, 9, n).astype(np.int32)}
+    dc = DC("d", [Atom("region", "==", "region"), Atom("price", "<", "price"),
+                  Atom("disc", ">", "disc")])
+    fd = FD("f", "region", "supp")
+    outs = {}
+    for dev in ("cpu", card):
+        rel = make_relation(cols, overlay=["price", "disc", "supp"], k=4, rules=["d", "f"],
+                            device=dev)
+        mesh = one_device_mesh(dev)
+        before = dc_pairs.LAUNCHES["dc_pair_scan"]
+        det, _ = detect_dc_sharded_info(rel, dc, rel.valid, rel.valid, mesh, n_shards=8,
+                                        block=256)
+        if dev == card:
+            assert dc_pairs.LAUNCHES["dc_pair_scan"] == before + 1
+        dense = detect_dc(rel, dc, rel.valid, rel.valid)
+        fdet, _ = detect_fd_sharded_info(rel, fd, rel.valid, mesh, k=4, n_shards=8)
+        fdense = detect_fd(rel, fd, rel.valid, k=4)
+        outs[dev] = ([det.t1_count, det.t2_count, *det.t1_stat, *det.t2_stat],
+                     [dense.t1_count, dense.t2_count, *dense.t1_stat, *dense.t2_stat],
+                     [fdet.violated, fdet.rhs_cand, fdet.rhs_count, fdet.lhs_cand],
+                     [fdense.violated, fdense.rhs_cand, fdense.rhs_count, fdense.lhs_cand])
+    for side in range(4):
+        for g, w in zip(outs[card][side], outs["cpu"][side]):
+            assert torch.equal(_bits(g.cpu()), _bits(w))
+    for sharded, dense in ((0, 1), (2, 3)):
+        for g, w in zip(outs[card][sharded], outs[card][dense]):
+            assert torch.equal(_bits(g), _bits(w))
 
 
 @pytest.mark.parametrize("both", [True, False], ids=["pair", "role"])

@@ -29,6 +29,7 @@ from repro_torch.core import update as tupd
 from repro_torch.core.accuracy import repair_accuracy as tacc
 from repro_torch.core.constraints import DC, FD, Atom
 from repro_torch.core.relation import make_relation as tmake
+from repro_torch.dist.hints import Mesh
 from repro_torch.testing import relation_from_numpy, relation_to_numpy
 
 torch.set_num_threads(1)
@@ -136,9 +137,12 @@ def test_detect_dc_all_fields(case, encode, restr):
 
 
 def test_detect_auto_rejects_mesh():
+    """A mesh that spreads data over two devices (the reference's shard_map
+    branch) is refused: the port shards logically on one device."""
     _, trel = relations(lineorder(8, 0), ["suppkey"])
     with pytest.raises(NotImplementedError):
-        tdet.detect_auto(trel, FD("f", "orderkey", "suppkey"), trel.valid, mesh=object())
+        tdet.detect_auto(trel, FD("f", "orderkey", "suppkey"), trel.valid,
+                         mesh=Mesh([["cpu"], ["cpu"]], ("data", "model")), n_shards=2)
 
 
 # ------------------------------------------------------------------- repair

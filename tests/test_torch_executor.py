@@ -23,6 +23,7 @@ from repro_torch.core.executor import Daisy, DaisyConfig
 from repro_torch.core.operators import GroupBySpec, Pred, Query
 from repro_torch.core.relation import make_relation as tmake
 from repro_torch.data import generators as tgen
+from repro_torch.dist.hints import Mesh
 from repro_torch.obs.trace import Tracer
 from repro_torch.testing import relation_to_numpy
 
@@ -209,8 +210,11 @@ def test_generators_are_the_reference_copies():
 def test_unported_paths_raise_and_tracer_spans():
     rel = tmake(CITIES, overlay=["zip", "city"], rules=["zip_city"], device="cpu")
     rules = {"t": [FD("zip_city", "zip", "city")]}
+    # sharded detection runs logical shards on one device: a mesh spreading
+    # data over two devices is refused
     with pytest.raises(NotImplementedError):
-        Daisy({"t": rel}, rules, DaisyConfig(mesh=object()), device="cpu")
+        Daisy({"t": rel}, rules, DaisyConfig(mesh=Mesh([["cpu"], ["cpu"]], ("data", "model"))),
+              device="cpu")
     tracer = Tracer()
     daisy = Daisy({"t": rel}, rules, DaisyConfig(use_cost_model=False), tracer=tracer,
                   device="cpu")
