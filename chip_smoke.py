@@ -122,13 +122,33 @@ Phases, each of which must pass or the script exits non-zero:
    time of that prefill and of four more decode steps on the main run's
    cache;
 16. the ``ServeEngine`` at that width, a functional smoke: 8 requests of
-   8-16 prompt tokens, 16 new tokens each, through 4 slots.
+   8-16 prompt tokens, 16 new tokens each, through 4 slots;
+17. every registered architecture (jamba, falcon-mamba, nemotron, gemma3,
+   chatglm3, qwen3, whisper, internvl2, olmoe, qwen2-moe) at its reduced
+   widths in float32 compute, weights from a seed: ``forward``,
+   ``prefill`` (every cache leaf) and 4 ``decode_step``s on the card
+   against the same calls on the CPU at ``atol=rtol=2e-3``, and every MoE
+   block's chosen experts equal;
+18. olmoe-1b-7b (16 layers), falcon-mamba-7b (64 layers) and
+   whisper-large-v3 (32 + 32 layers, 1,500 random encoder frames) at their
+   published widths, and gemma3-12b at its published widths cut to one
+   pattern unit (5 local layers, window 1,024, and 1 global, head dim 256),
+   weights from seed 0, one at a time: (b) in float32 compute,
+   prefill(s) then decode(token s) against forward(s + 1) at the last
+   position (an MoE block dropless there), at ``atol=rtol=2e-3``; in bf16,
+   the main path: ``prefill`` of B 2 x 2048 tokens (whisper: a 448-token
+   decoder prompt) and 32 greedy ``decode_step``s, timed; (a) the same
+   prefill through the plain attention version (logits within 5% of the
+   largest; an MoE model reports how many expert choices differ); (c) each
+   attention call's live (q, k, v), captured in one more prefill, through
+   the kernel against the plain version at bf16 ``atol=3e-2``; then
+   ``torch.profiler``'s device time of a prefill and of four decode steps.
 
 Each main path (FD, DC, join, offline, ingest, service, the sharded
-Daisy, the LM prefill and decode, the engine) runs with every kernel's
-launch count at 0, read just after; the counts must be as
-``PATH_LAUNCHES`` says, and the role scan, the semijoin and the CUDA-core
-flash kernel lie on none of them.  The line before the
+Daisy, each LM model's prefill and decode, the engine) runs with every
+kernel's launch count at 0, read just after; the counts must be as
+``PATH_LAUNCHES`` says: the role scan and the semijoin lie on none of
+them, the CUDA-core flash kernel on the gemma3 path only.  The line before the
 last is a JSON object describing each kernel, its launches summed over
 the paths and given per path; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA
@@ -176,6 +196,20 @@ LM_PLAIN_REL_TOL = 0.05
 # reference's tolerance (tests/test_arch_smoke.py)
 LM_F32_TOL = dict(atol=2e-3, rtol=2e-3)
 ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_NEW = 8, 4, 16
+# every registered architecture at its reduced widths: prompt (vision
+# prefix included) and decode steps, card against CPU
+ARCH_PROMPT, ARCH_DECODE = 16, 4
+# the full-width paths: (path, arch, pattern units kept or None for all,
+# the prompt of the f32 prefill + decode == forward check); gemma3 keeps one
+# 5-local + 1-global unit, and its check prompt passes the 1,024 window so
+# the ring buffer wraps.  Whisper's decoder prompt is its 448-token context.
+FULL_WIDTH = (
+    ("lm_olmoe", "olmoe-1b-7b", None, LM_CHECK_PROMPT),
+    ("lm_falcon_mamba", "falcon-mamba-7b", None, LM_CHECK_PROMPT),
+    ("lm_whisper", "whisper-large-v3", None, LM_CHECK_PROMPT),
+    ("lm_gemma3", "gemma3-12b", 1, 1_100),
+)
+WHISPER_PROMPT = 448
 
 FD_SMALL_ROWS = 65_536
 SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS = 6_000_000, 1_500_000, 2_000
@@ -203,13 +237,23 @@ DIST_SKEW_SHARDS, DIST_DAISY_SHARDS = 8, 16
 DIST_BIG_ROWS, DIST_BIG_REGIONS = 1_048_576, 32_768
 # Launches each main path must make (None: at least one); a kernel not
 # named launches none there.  dc_role_scan and semijoin lie on no path:
-# only their kernels.ops entry points call them.  The LM prefill's 36
-# attention calls are bf16 at head dim 128: the wgmma kernel's; the
-# CUDA-core flash kernel (float32, other head dims) lies on no path.
+# only their kernels.ops entry points call them.  An LM path is one bf16
+# prefill and its greedy decode steps, and only the prefill launches (one
+# flash call per attention layer; decode attends in plain tensor code):
+# * qwen3-4b: 36 layers at head dim 128, the wgmma kernel's;
+# * olmoe-1b-7b: 16 layers at head dim 128, the wgmma kernel's;
+# * falcon-mamba-7b: 64 Mamba layers, no attention, no kernel;
+# * whisper-large-v3: head dim 64, the wgmma kernel's, 32 encoder layers
+#   (non-causal), 32 decoder self-attention (causal) and 32 cross-attention
+#   calls (non-causal over the encoder's 1,500 frames): 96;
+# * gemma3-12b cut to one unit: 5 local and 1 global layer at head dim 256,
+#   outside the wgmma kernel's head dims: the CUDA-core kernel's, 6.
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
     "ingest": {"dc_pair_scan": None}, "service": {"dc_pair_scan": None},
     "dist": {"dc_pair_scan": None}, "lm": {"flash_attention_wgmma": 36}, "engine": {},
+    "lm_olmoe": {"flash_attention_wgmma": 16}, "lm_falcon_mamba": {},
+    "lm_whisper": {"flash_attention_wgmma": 96}, "lm_gemma3": {"flash_attention": 6},
 }
 
 
@@ -2250,6 +2294,314 @@ def engine_phase(dev, cfg, params):
         f"{n_new / dt:.1f} generated tokens/s, {dt / steps * 1e3:.3f} ms/step")
 
 
+# ------------------------------------------------------------------ phase 17
+@contextlib.contextmanager
+def captured_routing():
+    """Within this context every MoE block records the experts it chose
+    (``moe._top_k``'s int32 indices), in call order.  It wraps the helper
+    ``moe_mlp`` calls; the model is not changed."""
+    from repro_torch.models import moe
+
+    seen = []
+    inner = moe._top_k
+
+    def record(probs, k):
+        vals, idx = inner(probs, k)
+        seen.append(idx)
+        return vals, idx
+
+    moe._top_k = record
+    try:
+        yield seen
+    finally:
+        moe._top_k = inner
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def lm_inputs(cfg, b, s_text, gen, device):
+    """Token ids (b, s_text) and the stub frontends' inputs, from ``gen``."""
+    import torch
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s_text), generator=gen,
+                                     device=gen.device).to(device)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn((b, cfg.vis_tokens, cfg.d_model), generator=gen,
+                                            device=gen.device).to(device)
+    if cfg.frontend == "audio":
+        batch["enc_frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen,
+                                          device=gen.device).to(device)
+    return batch
+
+
+def routing_flips(got, want) -> tuple:
+    """(choices that differ, choices) between two captured routings."""
+    if len(got) != len(want):
+        fail(f"routing captured {len(got)} and {len(want)} MoE calls")
+    differ = sum(int((g.cpu() != w.cpu()).sum()) for g, w in zip(got, want))
+    return differ, sum(w.numel() for w in want)
+
+
+def archs_phase(dev):
+    """Every registered architecture at its reduced widths in float32
+    compute: ``forward``, ``prefill`` and ``ARCH_DECODE`` decode steps on
+    the card against the same calls on the CPU, and every MoE block's
+    chosen experts equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.params import cast_params, init_params
+    from repro_torch.testing import tree_paths
+
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  compute_dtype="float32").canonicalize(tp=1)
+        master = init_params(cfg, torch.Generator().manual_seed(17), "cpu")
+        s = ARCH_PROMPT - cfg.vis_tokens
+        inputs = lm_inputs(cfg, LM_BATCH, s + ARCH_DECODE, torch.Generator().manual_seed(18),
+                           "cpu")
+
+        def run(device):
+            params = cast_params(_to(master, device), cfg)
+            batch = _to(inputs, device)
+            pre_batch = dict(batch, tokens=batch["tokens"][:, :s])
+            out = {}
+            with captured_routing() as routes:
+                out["forward"], out["aux"] = tt.forward(params, cfg, batch)
+                out["prefill"], cache = tt.prefill(params, cfg, pre_batch,
+                                                   s_max=ARCH_PROMPT + ARCH_DECODE,
+                                                   cache_dtype=torch.float32)
+                for i in range(ARCH_DECODE):
+                    out[f"decode {i}"], cache = tt.decode_step(
+                        params, cfg, cache, batch["tokens"][:, s + i:s + i + 1])
+            for name, leaf in tree_paths(cache).items():
+                out[f"cache {name}"] = leaf
+            return {k: v.cpu() if hasattr(v, "cpu") else v for k, v in out.items()}, routes
+
+        want, want_routes = run("cpu")
+        got, got_routes = run(dev)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, w in want.items():
+            g = got[name]
+            if not isinstance(w, torch.Tensor):
+                if g != w:
+                    fail(f"{arch} reduced: {name} {g} on the card, {w} on the CPU")
+                continue
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{arch} reduced: {name} {g.dtype}{tuple(g.shape)} on the card, "
+                     f"{w.dtype}{tuple(w.shape)} on the CPU")
+            try:
+                torch.testing.assert_close(g.float(), w.float(), **LM_F32_TOL)
+            except AssertionError as exc:
+                fail(f"{arch} reduced: {name} on the card differs from the CPU: {exc}")
+            err = max(err, max_abs_err(g.float(), w.float()))
+        differ, total = routing_flips(got_routes, want_routes)
+        if differ:
+            fail(f"{arch} reduced: {differ} of {total} expert choices differ between the card "
+                 f"and the CPU (a near-tie in the router)")
+        worst[arch] = err
+        log(f"{arch} reduced (f32): forward, prefill({s}), {ARCH_DECODE} decode steps and "
+            f"{len(want) - 3 - ARCH_DECODE} cache leaves on the card == on the CPU, max abs err "
+            f"{err:.3e} (tolerance {LM_F32_TOL}); "
+            + (f"{total} expert choices in {len(want_routes)} MoE calls, all equal"
+               if want_routes else "no MoE block"))
+    return worst
+
+
+# ------------------------------------------------------------------ phase 18
+def full_width_phase(dev, arch, units, check_prompt):
+    """One architecture at its published widths (``units`` pattern units,
+    or all), weights from seed 0 on the card; checks (a)-(c) and the timed
+    prefill and decode.  Returns the main path's launch counts and the
+    timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.params import cast_params, init_params
+
+    cfg = get_config(arch).canonicalize(tp=1)
+    if units is not None:
+        cfg = dataclasses.replace(cfg, n_layers=units * len(cfg.pattern))
+    prompt_len = WHISPER_PROMPT if cfg.enc_dec else LM_PROMPT
+    t0 = time.perf_counter()
+    master = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(master))
+    log(f"{arch}: {cfg.n_layers} layers{' (cut to ' + str(units) + ' unit)' if units else ''}"
+        f" + {cfg.enc_layers} encoder layers, d_model {cfg.d_model}, {n_params} parameters "
+        f"(param_count {cfg.param_count()}, active {cfg.active_param_count()}), float32 master "
+        f"made on the card in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # (b) float32 compute: prefill(s) + decode(token s) == forward(s + 1).
+    # An MoE block runs dropless here (capacity_factor = n_experts / top_k):
+    # the GShard capacity makes which (token, expert) pairs overflow depend
+    # on the batch's token count, so the two sides would differ by design.
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    p32 = cast_params(master, cfg32)
+    s = check_prompt
+    batch = lm_inputs(cfg, LM_BATCH, s + 1, gen, dev)
+    full, _ = tt.forward(p32, cfg32, batch)
+    _, cache = tt.prefill(p32, cfg32, dict(batch, tokens=batch["tokens"][:, :s]), s_max=s + 8,
+                          cache_dtype=torch.float32)
+    dec, _ = tt.decode_step(p32, cfg32, cache, batch["tokens"][:, s:s + 1])
+    torch.cuda.synchronize()
+    e = max_abs_err(dec, full[:, -1])
+    try:
+        torch.testing.assert_close(dec, full[:, -1], **LM_F32_TOL)
+    except AssertionError as exc:
+        fail(f"{arch} f32 prefill({s}) + decode != forward({s + 1}): {exc}")
+    log(f"{arch} (b) f32: prefill({s}) + decode == forward({s + 1}) at the last position, "
+        f"max abs err {e:.3e} (tolerance {LM_F32_TOL}; logits up to "
+        f"{float(full[:, -1].abs().max()):.3f})")
+    del full, cache, dec, p32, batch
+
+    params = cast_params(master, cfg)  # the bf16 compute copy, once
+    del master
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"{arch}: bf16 compute copy made; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    batch = lm_inputs(cfg, LM_BATCH, prompt_len, gen, dev)
+    s_max = prompt_len + LM_DECODE + LM_PROFILE_STEPS + 1
+    tt.prefill(params, cfg, dict(batch, tokens=batch["tokens"][:, :128]), s_max=160)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: prefill, then greedy decode, counts read right after
+    with captured_routing() as routes:
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = tt.prefill(params, cfg, batch, s_max=s_max)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_counts = read_counts()
+    first = logits.clone()
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        logits, cache = tt.decode_step(params, cfg, cache, logits.argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+    counts = read_counts()
+    if counts != prefill_counts:
+        fail(f"{arch}: decode launched kernels: {prefill_counts} after prefill, {counts} after")
+    vocab = cfg.vocab_padded or cfg.vocab_size
+    if first.shape != (LM_BATCH, vocab) or first.dtype != torch.float32:
+        fail(f"{arch} prefill logits {first.dtype}{tuple(first.shape)}")
+    if not bool(torch.isfinite(first).all()) or not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: non-finite logits")
+    if cache["t"] != prompt_len + LM_DECODE:
+        fail(f"{arch}: cache t {cache['t']} after {LM_DECODE} decode steps")
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"{arch} bf16 prefill B{LM_BATCH} x {prompt_len}"
+        f"{' + ' + str(cfg.enc_seq) + ' encoder frames' if cfg.enc_dec else ''}: "
+        f"{prefill_ms:.3f} ms, launches {launched}; {LM_DECODE} greedy decode steps "
+        f"{decode_ms:.3f} ms/token (batch {LM_BATCH}) on {card_line()}")
+
+    # (a) the same prefill with attention through the plain version
+    with captured_routing() as plain_routes, fa.plain_version():
+        want, _ = tt.prefill(params, cfg, batch, s_max=s_max)
+    torch.cuda.synchronize()
+    e = max_abs_err(first, want)
+    scale = float(want.abs().max())
+    agree = float((first.argmax(-1) == want.argmax(-1)).float().mean())
+    route_note = ""
+    if routes:
+        differ, total = routing_flips(routes, plain_routes)
+        route_note = (f"; {differ} of {total} expert choices differ between the two "
+                      f"prefills")
+    log(f"{arch} (a) prefill through the kernels vs the plain version: max abs err {e:.4f} "
+        f"on logits up to {scale:.3f} (tolerance {LM_PLAIN_REL_TOL} x that); argmax agreement "
+        f"{agree:.2f}{route_note}")
+    if not e <= LM_PLAIN_REL_TOL * scale:
+        fail(f"{arch}: prefill logits through the kernels differ from the plain version by {e}"
+             f"{route_note}")
+    del want, routes, plain_routes
+
+    # (c) each attention call's live (q, k, v), captured in one more
+    # prefill, through the kernel against the plain version computed in
+    # float32 on the same inputs: the value the kernel's bf16 output rounds.
+    # (Against the plain version's own bf16 rounding, two correct roundings
+    # can sit one bf16 step apart, 0.03125 where |o| >= 4, above the atol.)
+    with captured_attention() as seen:
+        tt.prefill(params, cfg, batch, s_max=s_max)
+    n_calls = sum(counts.values())
+    if len(seen) != n_calls:
+        fail(f"{arch}: captured {len(seen)} attention calls, the main path launched {n_calls}")
+    worst, worst_call, worst_rounded = -1.0, -1, 0.0
+    for i, (q, k, v, kw) in enumerate(seen):
+        got = fa.flash_attention(q, k, v, **kw).float()
+        with fa.plain_version():
+            want = fa.flash_attention(q.float(), k.float(), v.float(), **kw)
+            rounded = fa.flash_attention(q, k, v, **kw).float()
+        try:
+            torch.testing.assert_close(got, want, **BF16_TOL)
+        except AssertionError as exc:
+            fail(f"{arch} attention call {i} {tuple(q.shape)} x {tuple(k.shape)} {kw}: the "
+                 f"kernel differs from the plain version on its live (q, k, v): {exc}")
+        e = max_abs_err(got, want)
+        worst_rounded = max(worst_rounded, max_abs_err(got, rounded))
+        if e > worst:
+            worst, worst_call = e, i
+    shapes = sorted({(tuple(q.shape), tuple(k.shape), kw.get("causal"), kw.get("window"))
+                     for q, k, v, kw in seen}, key=str)
+    log(f"{arch} (c) {len(seen)} attention calls' live (q, k, v) through the kernel == the "
+        f"plain version in float32, largest max abs err {worst:.3e} (call {worst_call}; "
+        f"tolerance {BF16_TOL}); against the plain version's bf16 output {worst_rounded:.3e}; "
+        f"(q, k, causal, window) {shapes}")
+    # the path's attention calls timed one by one (CUDA events, 3 reps
+    # after a warm-up), against the sum of their bounds
+    if seen:
+        attn_ms = sum(cuda_ms(lambda c=c: fa.flash_attention(c[0], c[1], c[2], **c[3]), 3)
+                      for c in seen)
+        attn_bound = sum(attention_bound(q, k, kw.get("causal", True), kw.get("window"))[0]
+                         for q, k, v, kw in seen)
+        log(f"{arch} attention: {len(seen)} calls {attn_ms:.3f} ms through the kernel, bound "
+            f"{attn_bound:.4f} ms ({attn_ms / attn_bound:.1f} times) on {card_line()}")
+    del seen
+
+    def report(what, wall_ms, fn, reps):
+        busy, top = device_profile(fn, reps)
+        if busy <= 0:
+            log(f"{arch} {what} profile: device time not measured (the profiler saw no kernel)")
+            return None
+        idle = max(0.0, 1 - busy / wall_ms)
+        log(f"{arch} {what} profile: kernels busy {busy:.3f} ms of {wall_ms:.3f} ms (idle share "
+            f"{idle:.3f}); top {top}")
+        return idle
+
+    prefill_idle = report("prefill", prefill_ms,
+                          lambda: tt.prefill(params, cfg, batch, s_max=s_max), 1)
+    state = {"logits": logits}
+
+    def step():
+        tok = state["logits"].argmax(-1, keepdim=True)
+        state["logits"], _ = tt.decode_step(params, cfg, cache, tok)
+
+    decode_idle = report(f"decode step (t {cache['t'] + 1}..{cache['t'] + LM_PROFILE_STEPS})",
+                         decode_ms, step, LM_PROFILE_STEPS)
+    del params, cache, logits, state, batch, first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts, dict(prefill_ms=prefill_ms, decode_ms=decode_ms, prefill_idle=prefill_idle,
+                        decode_idle=decode_idle)
+
+
 def main() -> int:
     import torch
 
@@ -2317,6 +2669,13 @@ def main() -> int:
     dc_measured["max_abs_err"] = max(dc_measured["max_abs_err"], dist_err)
     paths["lm"], cfg, params = lm_phase(dev)
     drive("engine", lambda: engine_phase(dev, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    archs_phase(dev)
+    full_width = {}
+    for path, arch, units, check_prompt in FULL_WIDTH:
+        paths[path], full_width[arch] = full_width_phase(dev, arch, units, check_prompt)
+    log(f"full-width LM timings on {card_line()}: {json.dumps(full_width)}")
     for path, counts in paths.items():
         log(f"{path} path launches: {counts}")
         for kernel, n in counts.items():

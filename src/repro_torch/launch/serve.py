@@ -1,16 +1,30 @@
-"""The port's serving launcher: the query service over the port's ``Daisy``.
+"""The port's serving launcher: the batched LM decode engine, and the query
+service over the port's ``Daisy``.  Two workloads share this entry point,
+as in the reference's launcher (``repro.launch.serve``):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --workload queries \\
-        --sessions 8 --requests 40 --rows 2048 --background \\
-        --increment-rows 256 --increment-strips 2
+* ``--workload decode`` (the default): ``run_decode``, the continuous-
+  batching ``ServeEngine`` over the reduced configuration of ``--arch`` (any
+  of the ten registered architectures), weights from ``--seed``, ``--requests``
+  random prompts of 4-11 tokens, ``--max-new`` tokens each, through
+  ``--max-batch`` slots:
 
-A synthetic multi-user analytical workload over ``repro_torch.service``
-(DESIGN.md §9): many sessions issue repeated exploratory queries against
-one shared, gradually-cleaned ``Daisy`` on the card (``--device cuda``,
-the default; ``--device cpu`` runs it on the CPU).  The launcher prints
-throughput, cache effectiveness and the detect/repair work amortized per
-query, in the reference launcher's format (``repro.launch.serve``), so the
-two runs' deterministic lines compare line for line.
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+          --requests 6 --device cpu
+
+* ``--workload queries``:
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --workload queries \\
+          --sessions 8 --requests 40 --rows 2048 --background \\
+          --increment-rows 256 --increment-strips 2
+
+  A synthetic multi-user analytical workload over ``repro_torch.service``
+  (DESIGN.md §9): many sessions issue repeated exploratory queries against
+  one shared, gradually-cleaned ``Daisy``.  The launcher prints throughput,
+  cache effectiveness and the detect/repair work amortized per query, in
+  the reference launcher's format, so the two runs' deterministic lines
+  compare line for line.
+
+The query workload's knobs:
 
 * ``--background`` runs the background cleaner (DESIGN.md §10) behind a
   serving thread; ``--increment-rows`` bounds one FD increment (whole lhs
@@ -23,9 +37,9 @@ two runs' deterministic lines compare line for line.
   stale-serve shedding (DESIGN.md §14); ``--trace`` dumps a Chrome trace
   (DESIGN.md §13).
 
-``run_queries`` returns the run (snapshot, engine, server, cleaner), so a
-caller can check what the service left behind.  The reference's
-``--workload decode`` waits for the port's other LM configurations.
+``run_decode`` returns its requests and engine and ``run_queries`` the run
+(snapshot, engine, server, cleaner), so a caller can check what each left
+behind.  Both run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -300,12 +314,60 @@ def run_queries(opts: ServeOptions) -> QueriesRun:
     return QueriesRun(snap, dt, daisy, server, cleaner, tickets)
 
 
+@dataclasses.dataclass
+class DecodeRun:
+    """What ``run_decode`` leaves behind for its caller."""
+
+    requests: List[object]
+    engine: object
+    seconds: float
+
+
+def run_decode(args) -> DecodeRun:
+    """The reference's ``run_decode``: the reduced ``--arch`` at tp=1, its
+    weights from ``--seed`` (a ``torch.Generator``, not JAX's numbers),
+    ``--requests`` prompts drawn by ``np.random.default_rng(--seed)``,
+    greedy decoding through a ``ServeEngine`` of ``--max-batch`` slots and
+    128 positions."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.relation import resolve_device
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=True).canonicalize(tp=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    engine = ServeEngine(cfg, params, max_batch=args.max_batch, max_seq=128, device=dev)
+
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size, rng.integers(4, 12))
+        req = Request(rid=rid, prompt=prompt.astype(np.int32), max_new=args.max_new)
+        reqs.append(req)
+        engine.submit(req)
+
+    t0 = time.time()
+    engine.run()
+    dt = time.time() - t0
+    total_new = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {total_new} tokens in {dt:.1f}s "
+          f"({total_new/dt:.1f} tok/s fused batch)")
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: prompt {len(r.prompt)} toks -> {r.out[:8]}...")
+    return DecodeRun(reqs, engine, dt)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("queries",), default="queries")
+    ap.add_argument("--workload", choices=("decode", "queries"), default="decode")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the instance (cuda, the default, or cpu)")
+                    help="torch device of the model or instance (cuda, the default, or cpu)")
+    ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--sessions", type=int, default=4)
     ap.add_argument("--rows", type=int, default=1024)
@@ -348,7 +410,9 @@ def main(argv=None):
     )
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    run_queries(ServeOptions.from_args(args))
+    if args.workload == "queries":
+        return run_queries(ServeOptions.from_args(args))
+    return run_decode(args)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""GQA attention: prefill over the whole sequence (the flash kernel) and
-one-token decode over a KV cache (plain tensor code).
+"""GQA attention: prefill over the whole sequence and encoder-decoder cross
+attention (the flash kernel), one-token decode over a KV cache (plain tensor
+code), and the int8 KV cache's quantization.
 
 The counterpart of ``repro.models.attention``, in the same layouts:
 
 activations     (b, s, d)
 q/k/v heads     (b, s, h, hd) — the flash kernel reads them as (b, h, s, hd)
                 views, with no transposed copy
-KV cache        (b, S, kv, hd)
+KV cache        (b, S, kv, hd); int8 values with bf16 (b, S, kv) scales
+                under ``kv_quant``
 
 KV heads are padded to the canonicalized count (``cfg.n_kv_heads_padded``)
 in the weights; padding heads are exact replicas, and the cache stores only
@@ -93,11 +95,14 @@ def attend_cache(
     t_pos: int,  # number of valid cache positions
     window: Optional[int],
     params: dict,
+    k_scale: Optional[torch.Tensor] = None,  # (b, S, kvp) int8-cache scales
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One-token decode: a plain masked stable softmax over the whole cache
     (the reference has no kernel here): ``-inf`` logits where masked, the
     ``max(m, -1e30)`` guard for a row with no visible key, and
-    ``p / max(denom, 1e-30)``."""
+    ``p / max(denom, 1e-30)``.  An int8 cache is dequantized by its scales
+    in float32."""
     b, _, hq, hd = x_q.shape
     S, kvp = cache_k.shape[1], cache_k.shape[2]
     # padded q heads beyond kv * group are zero-output heads (MHA
@@ -106,7 +111,10 @@ def attend_cache(
     used_q = kvp * group
     scale = 1.0 / (hd ** 0.5)
     q = x_q[:, 0, :used_q].reshape(b, kvp, group, hd).float()  # (b, kvp, g, hd)
-    kf = cache_k.float().permute(0, 2, 3, 1)  # (b, kvp, hd, S)
+    kf = cache_k.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+    kf = kf.permute(0, 2, 3, 1)  # (b, kvp, hd, S)
     logits = (q @ kf) * scale  # (b, kvp, g, S)
     k_pos = torch.arange(S, device=x_q.device)
     mask = k_pos < t_pos
@@ -116,11 +124,28 @@ def attend_cache(
     m = logits.amax(-1, keepdim=True).clamp_min(-1e30)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    o = p @ cache_v.float().transpose(1, 2)  # (b, kvp, g, hd)
+    vf = cache_v.float()
+    if v_scale is not None:
+        vf = vf * v_scale.float()[..., None]
+    o = p @ vf.transpose(1, 2)  # (b, kvp, g, hd)
     o = o.reshape(b, 1, used_q, hd).to(x_q.dtype)
     if used_q < hq:
         o = torch.nn.functional.pad(o, (0, 0, 0, hq - used_q))
     return _project_out(o, params["wo"])
+
+
+def attend_cross(
+    x: torch.Tensor,  # (b, s, d) decoder states
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],  # (b, se, h, hd) each
+    params: dict,
+) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): the flash kernel,
+    non-causal, over the encoder's keys and values."""
+    q = _heads(x, params["wq"])
+    k, v = enc_kv
+    o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             causal=False)
+    return _project_out(o.transpose(1, 2), params["wo"])
 
 
 def slice_true_kv(k: torch.Tensor, kv_true: int, mha: bool) -> torch.Tensor:
@@ -152,3 +177,20 @@ def update_cache(
     cache_k[:, pos:pos + 1] = new_k.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = new_v.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+# ------------------------------------------------------------ int8 KV cache
+def quantize_kv(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization.  k: (b, s, kv, hd).
+
+    Returns (int8 values, bf16 scales (b, s, kv)).  The values come from the
+    float32 scale (round half to even, as ``jnp.round``); only the stored
+    scale is rounded to bf16."""
+    kf = k.float()
+    scale = (kf.abs().amax(-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(kf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale.float()[..., None]

@@ -2,9 +2,10 @@
 
 The counterpart of ``repro.models.config``: the same ``ModelConfig``,
 ``BlockSpec``, ``MoEConfig`` and ``SSMConfig`` dataclasses, the same derived
-``hd`` and ``n_units``, the same TP-degree ``canonicalize`` (KV heads, q heads
-and vocab padded so every sharded dim divides the model axis, the pads
-recorded on the config) and the same ``param_count``.  Host logic only: the
+``hd``, ``n_units``, ``sub_quadratic`` and ``has_decoder``, the same TP-degree
+``canonicalize`` (KV heads, q heads, vocab and experts padded so every
+sharded dim divides the model axis, the pads recorded on the config) and the
+same ``param_count`` and ``active_param_count``.  Host logic only: the
 port keeps its own copy so that it imports nothing of the reference.
 """
 
@@ -97,6 +98,20 @@ class ModelConfig:
         )
         return self.n_layers // len(self.pattern)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long contexts: SSM/hybrid, or all-local+KV-linear-global
+        decode (gemma3's 5:1 — decode-time attention is KV-linear)."""
+        mixers = {b.mixer for b in self.pattern}
+        if "mamba" in mixers:
+            return True
+        local = sum(b.attn_type == "local" for b in self.pattern)
+        return local > 0 and local >= len(self.pattern) - 1
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all registered archs decode (whisper via its decoder)
+
     def canonicalize(self, tp: int) -> "ModelConfig":
         """Pad heads / KV heads / vocab / experts to the TP degree (recorded).
 
@@ -163,3 +178,14 @@ class ModelConfig:
             total += self.n_layers * (4 * d * d + d)
             total += self.enc_layers * enc_unit + d
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        mult = 3 if self.mlp == "swiglu" else 2
+        moe_positions = sum(1 for b in self.pattern if b.moe) * self.n_units
+        all_e = m.n_experts * mult * self.d_model * m.d_ff_expert
+        act_e = (m.top_k + m.n_shared) * mult * self.d_model * m.d_ff_expert
+        return self.param_count() - moe_positions * (all_e - act_e)

@@ -25,24 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import resolve_device
-from repro_torch.models.config import ModelConfig
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the slice a config needs that
-    the port does not have yet."""
-    missing = None
-    if any(b.mixer != "attn" for b in cfg.pattern):
-        missing = "the Mamba slice"
-    elif any(b.moe for b in cfg.pattern):
-        missing = "the MoE slice"
-    elif cfg.enc_dec or cfg.rope == "none":
-        missing = "the encoder-decoder slice (attend_cross, learned positions)"
-    elif cfg.frontend != "none":
-        missing = f"the {cfg.frontend}-frontend slice"
-    elif cfg.kv_quant:
-        missing = "the int8 KV-cache slice (kv_quant)"
-    if missing is not None:
-        raise NotImplementedError(f"{cfg.name}: the port runs it with {missing}")
+from repro_torch.models.config import ModelConfig, SSMConfig
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -72,11 +55,12 @@ def _norm(init: _Init, cfg: ModelConfig, shape, dtype) -> Dict:
     return p
 
 
-def _attn_params(init: _Init, cfg: ModelConfig, u: int, dtype) -> Dict:
+def _attn_params(init: _Init, cfg: ModelConfig, u: int, dtype, cross: bool = False) -> Dict:
     """The reference's head padding (``_attn_params``), which preserves the
     model's math exactly: KV heads replicate-pad consecutively (padded head j
     copies true head j // r), except under MHA, where they zero-pad beside
-    the q heads; padded q heads get zero wq and wo rows."""
+    the q heads; padded q heads get zero wq and wo rows.  Cross attention
+    (``cross``) has no qk-norm scales."""
     d, hd = cfg.d_model, cfg.hd
     hq_true, kv_true = cfg.n_heads, cfg.n_kv_heads
     hq = cfg.n_heads_padded or hq_true
@@ -101,7 +85,7 @@ def _attn_params(init: _Init, cfg: ModelConfig, u: int, dtype) -> Dict:
     if hq > hq_true:
         wo = torch.cat([wo, init.full((u, hq - hq_true, hd, d), dtype, 0.0)], dim=1)
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = init.full((u, hd), dtype, 1.0)
         p["k_norm"] = init.full((u, hd), dtype, 1.0)
     return p
@@ -113,12 +97,52 @@ def _mlp_params(init: _Init, cfg: ModelConfig, u: int, dtype) -> Dict:
     return {"wi": init.normal(wi_shape, dtype, d), "wo": init.normal((u, f, d), dtype, f)}
 
 
+def _moe_params(init: _Init, cfg: ModelConfig, u: int, dtype) -> Dict:
+    """Expert weights over the padded expert count, a float32 router, and
+    qwen2-moe's shared experts as one dense MLP of ``n_shared`` widths."""
+    m, d = cfg.moe, cfg.d_model
+    e, f = m.n_experts_padded or m.n_experts, m.d_ff_expert
+    wi_shape = (u, e, d, 2, f) if cfg.mlp == "swiglu" else (u, e, d, f)
+    p = {"we_i": init.normal(wi_shape, dtype, d), "we_o": init.normal((u, e, f, d), dtype, f),
+         "router": init.normal((u, d, e), torch.float32, d)}
+    if m.n_shared:
+        fs = f * m.n_shared
+        shared_shape = (u, d, 2, fs) if cfg.mlp == "swiglu" else (u, d, fs)
+        p["shared_wi"] = init.normal(shared_shape, dtype, d)
+        p["shared_wo"] = init.normal((u, fs, d), dtype, fs)
+    return p
+
+
+def _mamba_params(init: _Init, cfg: ModelConfig, u: int, dtype) -> Dict:
+    """Mamba-1 mixer weights; ``A_log`` (log 1..N on every channel) and
+    ``D`` are float32 whatever the parameter dtype."""
+    ssm = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    d_in = ssm.expand * d
+    r = ssm.dt_rank or -(-d // 16)
+    n = ssm.d_state
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=init.device))
+    return {
+        "in_proj": init.normal((u, d, 2, d_in), dtype, d),
+        "conv_w": init.normal((u, d_in, ssm.d_conv), dtype, ssm.d_conv),
+        "conv_b": init.full((u, d_in), dtype, 0.0),
+        "x_proj": init.normal((u, d_in, r + 2 * n), dtype, d_in),
+        "dt_proj": init.normal((u, r, d_in), dtype, r),
+        "dt_bias": init.full((u, d_in), dtype, -4.0),  # softplus ~ 0.018
+        "A_log": a_log.expand(u, d_in, n).contiguous(),
+        "D": init.full((u, d_in), torch.float32, 1.0),
+        "out_proj": init.normal((u, d_in, d), dtype, d_in),
+    }
+
+
 def init_params(
     cfg: ModelConfig, generator: Optional[torch.Generator] = None, device="cuda"
 ) -> Dict:
-    """Parameter tree of ``cfg`` on ``device`` (``"meta"`` allocates nothing).
-    ``generator`` defaults to one seeded with 0 on the device."""
-    check_supported(cfg)
+    """Parameter tree of ``cfg`` on ``device`` (``"meta"`` allocates nothing):
+    the reference's leaves, shapes and dtypes for every block kind (attention
+    or Mamba mixer, dense or MoE MLP, cross attention and the encoder of an
+    encoder-decoder, learned positions).  ``generator`` defaults to one
+    seeded with 0 on the device."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -132,15 +156,38 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init.normal((vocab, d), dtype, d)
+    if cfg.rope == "none":
+        params["pos_embed"] = init.normal((cfg.max_seq, d), dtype, d)
     units: Dict = {}
-    for i, _ in enumerate(cfg.pattern):
-        bp: Dict = {"pre_norm": _norm(init, cfg, (u, d), dtype),
-                    "attn": _attn_params(init, cfg, u, dtype)}
-        if cfg.mlp != "none" and cfg.d_ff > 0:
+    for i, blk in enumerate(cfg.pattern):
+        bp: Dict = {"pre_norm": _norm(init, cfg, (u, d), dtype)}
+        if blk.mixer == "attn":
+            bp["attn"] = _attn_params(init, cfg, u, dtype)
+        else:
+            bp["mamba"] = _mamba_params(init, cfg, u, dtype)
+        if blk.moe and cfg.moe is not None:
+            bp["post_norm"] = _norm(init, cfg, (u, d), dtype)
+            bp["moe"] = _moe_params(init, cfg, u, dtype)
+        elif cfg.mlp != "none" and cfg.d_ff > 0:
             bp["post_norm"] = _norm(init, cfg, (u, d), dtype)
             bp["mlp"] = _mlp_params(init, cfg, u, dtype)
+        if cfg.enc_dec:
+            bp["cross_norm"] = _norm(init, cfg, (u, d), dtype)
+            bp["cross"] = _attn_params(init, cfg, u, dtype, cross=True)
         units[f"block_{i}"] = bp
     params["units"] = units
+    if cfg.enc_dec:
+        eu = cfg.enc_layers
+        params["encoder"] = {
+            "pos_embed": init.normal((cfg.enc_seq, d), dtype, d),
+            "units": {"block_0": {
+                "pre_norm": _norm(init, cfg, (eu, d), dtype),
+                "attn": _attn_params(init, cfg, eu, dtype),
+                "post_norm": _norm(init, cfg, (eu, d), dtype),
+                "mlp": _mlp_params(init, cfg, eu, dtype),
+            }},
+            "final_norm": _norm(init, cfg, (d,), dtype),
+        }
     return params
 
 
@@ -152,22 +199,27 @@ class ComputeParams(dict):
     take only this."""
 
 
-def _map(tree, fn):
+# leaves whose numerics need float32 whatever the compute dtype: the MoE
+# router (softmax and top-k) and the SSM dynamics
+KEEP_F32 = frozenset({"router", "A_log", "D", "dt_bias"})
+
+
+def _map(tree, fn, key=""):
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    return fn(key, tree)
 
 
 def cast_params(params: Dict, cfg: ModelConfig) -> ComputeParams:
     """Mixed precision: a bf16 copy of the float32 leaves when
-    ``cfg.compute_dtype`` is bfloat16, the same tensors otherwise.  (The
-    reference keeps MoE routers and SSM dynamics in float32; no tree the
-    port runs has them yet.)"""
+    ``cfg.compute_dtype`` is bfloat16, the same tensors otherwise.  Leaves
+    named in ``KEEP_F32`` (the MoE router and the SSM dynamics) stay float32,
+    as the reference's ``_KEEP_F32`` keeps them."""
     if isinstance(params, ComputeParams):
         return params
     if cfg.compute_dtype == "bfloat16":
-        out = ComputeParams(_map(
-            params, lambda x: x.to(torch.bfloat16) if x.dtype == torch.float32 else x))
+        out = ComputeParams(_map(params, lambda key, x: (
+            x.to(torch.bfloat16) if x.dtype == torch.float32 and key not in KEEP_F32 else x)))
     else:
         out = ComputeParams(params)
     table = out["embed"] if cfg.tie_embeddings else out["lm_head"]

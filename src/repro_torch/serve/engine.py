@@ -7,8 +7,13 @@ runs ONE decode for all active slots; finished sequences (EOS or max_len)
 free their slot.  Prompts enter token by token through decode.  The cache
 is a preallocated (slots, S_max) region in float32 by default.
 
-Per-slot state is host-side bookkeeping; device state is the cache.  The
-parameters are cast to their compute copy once, when the engine is made.
+Per-slot state is host-side bookkeeping; device state is the cache, of
+any registered architecture (``init_cache``: KV blocks, int8 under
+``kv_quant``, Mamba states, and whisper's cross cache, which stays zero:
+the engine runs no encoder, as in the reference).  A slot that takes a new
+request keeps the Mamba state and the cache rows its last occupant left,
+as in the reference.  The parameters are cast to their compute copy once,
+when the engine is made.
 """
 
 from __future__ import annotations

@@ -61,7 +61,9 @@ def tree_to_numpy(tree):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        # a copy: a CPU tensor's .numpy() shares its memory, and the port
+        # updates caches in place
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
     if isinstance(tree, (int, float)):
         return tree
     return np.array(tree)  # a writable copy

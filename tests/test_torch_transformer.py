@@ -28,7 +28,6 @@ from repro.models.params import init_params as jax_init_params
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as tt
-from repro_torch.models.config import BlockSpec
 from repro_torch.models.params import cast_params, init_params, params_from_numpy
 from repro_torch.testing import tree_paths, tree_to_numpy
 
@@ -238,22 +237,34 @@ def test_update_cache_clamps_like_the_reference(t_pos):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "qwen3_4b"])
-def test_other_architectures_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_config(arch)
+def test_unknown_architecture_raises():
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("qwen4-9b")
+    assert len(ARCH_IDS) == 10 and all(get_config(a) is not None for a in ARCH_IDS)
 
 
-def test_unsupported_blocks_raise():
-    _, cfg = configs(1)
-    for changes in (dict(pattern=(BlockSpec(mixer="mamba"),)), dict(kv_quant=True),
-                    dict(enc_dec=True), dict(rope="none"), dict(frontend="vision"),
-                    dict(pattern=(BlockSpec(moe=True),))):
-        bad = dataclasses.replace(cfg, **changes)
-        with pytest.raises(NotImplementedError, match="slice"):
-            init_params(bad, device="meta")
-        with pytest.raises(NotImplementedError, match="slice"):
-            tt.init_cache(bad, 1, 8, device="cpu")
+def test_cast_params_keeps_routers_and_ssm_dynamics_in_f32():
+    """Under bf16 compute the MoE router and the SSM's ``A_log``, ``D`` and
+    ``dt_bias`` stay float32, keyed on the leaf name as the reference's
+    ``_KEEP_F32``; every other float32 leaf becomes bf16 (jamba has all
+    four beside attention, Mamba and expert weights)."""
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b", reduced=True),
+                              compute_dtype="bfloat16")
+    master = init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    compute = cast_params(master, cfg)
+    kept = set()
+    for path, leaf in tree_paths(compute).items():
+        name = path.rsplit(".", 1)[-1]
+        if path == "unembed_f32" or name in ("router", "A_log", "D", "dt_bias"):
+            assert leaf.dtype == torch.float32, path
+            kept.add(name)
+        else:
+            assert leaf.dtype == torch.bfloat16, path
+    assert kept == {"router", "A_log", "D", "dt_bias", "unembed_f32"}
+    for path in ("units.block_1.moe.router", "units.block_0.mamba.A_log"):
+        assert tree_paths(compute)[path] is tree_paths(master)[path]  # not copied
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert all(t.dtype == torch.float32 for t in tree_paths(cast_params(master, f32)).values())
 
 
 def test_entry_points_default_to_the_card():
