@@ -10,7 +10,8 @@ Phases, each of which must pass or the script exits non-zero:
    ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
    ``semijoin.cu``) with nvcc, one process each, at once; log what
    ``ptxas`` says of registers and spills, and fail if any of the DC scan's
-   ten instantiations spills;
+   ten instantiations or the wgmma flash kernel's three (D 64, 128, 256)
+   spills;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros, then over every case of ``kernels/dc_scan_check.py`` (each
@@ -42,15 +43,20 @@ Phases, each of which must pass or the script exits non-zero:
 6. both flash-attention kernels against the plain version on the card
    (float32 ``atol=rtol=2e-5``, bf16 ``atol=3e-2``: the reference tests'
    tolerances), each case checked to launch the kernel ``kernel_variant``
-   chooses: the wgmma kernel (bf16, D 64 and 128) over qwen3-4b's prefill
-   (contiguous, and as the (b, s, h, d) views the model passes), group
-   sizes 1, 4 and 8, D 64 ragged S 300, non-causal Sq 77 against Sk 1000,
-   windows 64 at ragged S 500 and 1024 at S 4096, and a uniform V; the
-   CUDA-core kernel over float32 I/O, non-causal Sq 1 and 77, D 64, D 256
-   in bf16, a uniform V, and the prefill shape; then both kernels' times
-   at the prefill shape B 2 x S 2048 in alternating turns, beside the
-   plain version's, the ``scaled_dot_product_attention`` yardstick's and
-   the bound;
+   chooses: the wgmma kernel (bf16, D 64, 128 and 256) over qwen3-4b's
+   prefill (contiguous, and as the (b, s, h, d) views the model passes),
+   group sizes 1, 4 and 8, D 64 ragged S 300, non-causal Sq 77 against Sk
+   1000, windows 64 at ragged S 500 and 1024 at S 4096, a uniform V, and
+   at D 256 gemma3-12b's global and local (window 1,024) layers at B 2 x
+   2048, window 1,024 at ragged S 1,100, the (b, s, h, d) views, a
+   uniform V and S 130; the CUDA-core kernel over float32 I/O (S 1,024
+   and the prefill shape), non-causal Sq 1 and 77, D 64 and a uniform V,
+   and alone on bf16 at the prefill shape and gemma3's global layer; then
+   both kernels' times in alternating turns at the prefill shape B 2 x S
+   2048 and at gemma3's two shapes, and the CUDA-core kernel's in float32
+   at the prefill shape, each beside the plain version's, the
+   ``scaled_dot_product_attention`` yardstick's (a boolean band mask for
+   the window) and the bound;
 7. the FD path (rule orderkey -> suppkey): the port's ``Daisy`` on the card
    against the same engine on the CPU at 65,536 rows, query by query; then
    SSB lineorder at scale factor 1 (6,000,000 rows), 20 range queries;
@@ -132,8 +138,8 @@ Phases, each of which must pass or the script exits non-zero:
 18. olmoe-1b-7b (16 layers), falcon-mamba-7b (64 layers) and
    whisper-large-v3 (32 + 32 layers, 1,500 random encoder frames) at their
    published widths, and gemma3-12b at its published widths cut to one
-   pattern unit (5 local layers, window 1,024, and 1 global, head dim 256),
-   weights from seed 0, one at a time: (b) in float32 compute,
+   pattern unit (5 local layers, window 1,024, and 1 global, head dim 256:
+   the wgmma kernel's), weights from seed 0, one at a time: (b) in float32 compute,
    prefill(s) then decode(token s) against forward(s + 1) at the last
    position (an MoE block dropless there), at ``atol=rtol=2e-3``; in bf16,
    the main path: ``prefill`` of B 2 x 2048 tokens (whisper: a 448-token
@@ -147,8 +153,8 @@ Phases, each of which must pass or the script exits non-zero:
 Each main path (FD, DC, join, offline, ingest, service, the sharded
 Daisy, each LM model's prefill and decode, the engine) runs with every
 kernel's launch count at 0, read just after; the counts must be as
-``PATH_LAUNCHES`` says: the role scan and the semijoin lie on none of
-them, the CUDA-core flash kernel on the gemma3 path only.  The line before the
+``PATH_LAUNCHES`` says: the role scan, the semijoin and the CUDA-core
+flash kernel lie on none of them.  The line before the
 last is a JSON object describing each kernel, its launches summed over
 the paths and given per path; the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA
@@ -179,8 +185,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 132 * 128 * 1.98e9
 # Attention's products are bf16 at the main path's shapes: the tensor cores'
-# dense bf16 rate (NVIDIA data sheet, H100 SXM).
+# dense bf16 rate (NVIDIA data sheet, H100 SXM); float32 attention's are
+# float32 FMAs, at the data sheet's 67 TFLOP/s outside the tensor cores.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)  # the reference tests' float32 tolerance
 BF16_TOL = dict(atol=3e-2, rtol=0.0)  # and their bf16 tolerance
@@ -210,6 +218,7 @@ FULL_WIDTH = (
     ("lm_gemma3", "gemma3-12b", 1, 1_100),
 )
 WHISPER_PROMPT = 448
+GEMMA3_WINDOW = 1_024  # gemma3-12b's local layers' window
 
 FD_SMALL_ROWS = 65_536
 SF1_ROWS, SF1_ORDERKEYS, SF1_SUPPKEYS = 6_000_000, 1_500_000, 2_000
@@ -247,13 +256,14 @@ DIST_BIG_ROWS, DIST_BIG_REGIONS = 1_048_576, 32_768
 #   (non-causal), 32 decoder self-attention (causal) and 32 cross-attention
 #   calls (non-causal over the encoder's 1,500 frames): 96;
 # * gemma3-12b cut to one unit: 5 local and 1 global layer at head dim 256,
-#   outside the wgmma kernel's head dims: the CUDA-core kernel's, 6.
+#   the wgmma kernel's, 6.
+# The CUDA-core kernel (float32, other head dims) lies on no main path.
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
     "ingest": {"dc_pair_scan": None}, "service": {"dc_pair_scan": None},
     "dist": {"dc_pair_scan": None}, "lm": {"flash_attention_wgmma": 36}, "engine": {},
     "lm_olmoe": {"flash_attention_wgmma": 16}, "lm_falcon_mamba": {},
-    "lm_whisper": {"flash_attention_wgmma": 96}, "lm_gemma3": {"flash_attention": 6},
+    "lm_whisper": {"flash_attention_wgmma": 96}, "lm_gemma3": {"flash_attention_wgmma": 6},
 }
 
 
@@ -796,11 +806,11 @@ def semijoin_phase(dev):
 
 # ------------------------------------------------------------------ phase 6
 def attention_bound(q, k, causal, window):
-    """Least time of one attention call on an H100: the larger of its bf16
-    FLOPs (4 D per visible query-key pair and head: the QK^T and PV
-    products, counted over the pairs this call's mask leaves) over the
-    tensor cores' rate and its bytes (q, k, v read once, o written once)
-    over HBM bandwidth."""
+    """Least time of one attention call on an H100: the larger of its FLOPs
+    (4 D per visible query-key pair and head: the QK^T and PV products,
+    counted over the pairs this call's mask leaves) over the peak rate of
+    its dtype (bf16 on the tensor cores, float32 outside them) and its
+    bytes (q, k, v read once, o written once) over HBM bandwidth."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qpos = range(sq)
@@ -811,7 +821,8 @@ def attention_bound(q, k, causal, window):
         pairs += max(0, hi - lo + 1)
     flops = 4 * d * pairs * b * hq
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    peak = PEAK_F32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     detail = f"{flops:.4e} flops, {nbytes} bytes"
     if t_ops >= t_bytes:
         return t_ops, "operations", detail, flops
@@ -847,6 +858,10 @@ def flash_phase(dev):
     bf16, f32 = torch.bfloat16, torch.float32
     B, S = LM_BATCH, LM_PROMPT
     prefill_case = qkv(bf16, B, 32, 8, S, S, 128)
+    # gemma3-12b's attention at the prefill shape: Hq 16, Hkv 8, head dim 256;
+    # its global layers causal, its local ones within the window
+    gemma_case = qkv(bf16, B, 16, 8, S, S, 256)
+    f32_case = [x.float() for x in prefill_case]
     # (name, (q, k, v), causal, window, the kernel the wrapper must choose)
     cases = [
         ("qwen3-4b prefill B2 Hq32 Hkv8 D128 S2048 bf16 causal", prefill_case, True, None, "wgmma"),
@@ -861,12 +876,21 @@ def flash_phase(dev):
         ("window 1024 at S4096 bf16", qkv(bf16, 1, 8, 2, 4096, 4096, 128), True, 1024, "wgmma"),
         ("(b,s,h,d) views D64 S300 bf16", bshd_views(bf16, 2, 8, 2, 300, 64), True, None, "wgmma"),
         ("uniform V bf16 D128", uniform(bf16, 128), True, None, "wgmma"),
+        ("gemma3 global B2 Hq16 Hkv8 D256 S2048 bf16 causal", gemma_case, True, None, "wgmma"),
+        ("gemma3 local B2 Hq16 Hkv8 D256 S2048 bf16 window 1024", gemma_case, True,
+         GEMMA3_WINDOW, "wgmma"),
+        ("window 1024 ragged S1100 D256 bf16", qkv(bf16, B, 16, 8, 1_100, 1_100, 256), True,
+         GEMMA3_WINDOW, "wgmma"),
+        ("(b,s,h,d) views D256 S2048 bf16 window 1024", bshd_views(bf16, B, 16, 8, S, 256),
+         True, GEMMA3_WINDOW, "wgmma"),
+        ("uniform V bf16 D256", uniform(bf16, 256), True, None, "wgmma"),
+        ("D256 bf16 S130", qkv(bf16, 2, 8, 2, 130, 130, 256), True, None, "wgmma"),
         ("f32 I/O Hq32 Hkv8 D128 S1024 causal", qkv(f32, 1, 32, 8, 1024, 1024, 128), True, None,
          "cuda_core"),
+        ("f32 prefill B2 Hq32 Hkv8 D128 S2048 causal", f32_case, True, None, "cuda_core"),
         ("non-causal Sq1 Sk1000 f32", qkv(f32, 2, 32, 8, 1, 1000, 128), False, None, "cuda_core"),
         ("non-causal Sq77 Sk1000 f32", qkv(f32, 2, 32, 8, 77, 1000, 128), False, None, "cuda_core"),
         ("D64 f32 S512 causal", qkv(f32, 2, 4, 4, 512, 512, 64), True, None, "cuda_core"),
-        ("D256 bf16 S130", qkv(bf16, 2, 8, 2, 130, 130, 256), True, None, "cuda_core"),
         ("uniform V f32 D32", uniform(f32, 32), True, None, "cuda_core"),
     ]
 
@@ -900,43 +924,79 @@ def flash_phase(dev):
         err[variant] = max(err[variant], e)
         log(f"flash == plain: {name} ({variant} kernel): max abs err {e:.3e} (tolerance {tol})")
 
-    q, k, v = prefill_case
-    # the prefill shape through the CUDA-core kernel too, as the timing below runs it
-    got = fa.flash_attention_cuda_core(q, k, v, causal=True)
-    with fa.plain_version():
-        want = kops.flash_attention(q, k, v, causal=True)
-    try:
-        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
-    except AssertionError as exc:
-        fail(f"flash prefill case through the CUDA-core kernel: {exc}")
-    e = max_abs_err(got.float(), want.float())
-    err["cuda_core"] = max(err["cuda_core"], e)
-    log(f"flash == plain: prefill case through the CUDA-core kernel: max abs err {e:.3e}")
-    if fa.LAUNCHES["flash_attention"] != 1 + sum(c[-1] == "cuda_core" for c in cases):
-        fail(f"{fa.LAUNCHES} flash launches for {len(cases) + 1} cases")
+    # bf16 through the CUDA-core kernel alone, as the timings below run it:
+    # the prefill shape at D 128 and gemma3's global layer at D 256
+    for what, (q, k, v) in (("qwen3-4b prefill D128", prefill_case),
+                            ("gemma3 global D256", gemma_case)):
+        got = fa.flash_attention_cuda_core(q, k, v, causal=True)
+        with fa.plain_version():
+            want = kops.flash_attention(q, k, v, causal=True)
+        try:
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        except AssertionError as exc:
+            fail(f"flash {what} bf16 through the CUDA-core kernel: {exc}")
+        e = max_abs_err(got.float(), want.float())
+        err["cuda_core"] = max(err["cuda_core"], e)
+        log(f"flash == plain: {what} bf16 through the CUDA-core kernel: max abs err {e:.3e}")
+    if fa.LAUNCHES["flash_attention"] != 2 + sum(c[-1] == "cuda_core" for c in cases):
+        fail(f"{fa.LAUNCHES} flash launches for {len(cases) + 2} cases")
 
     kernels = {"wgmma": fa.flash_attention_wgmma, "cuda_core": fa.flash_attention_cuda_core}
-    turns = []  # (variant, ms): new, old, old, new
-    for variant in ("wgmma", "cuda_core", "cuda_core", "wgmma"):
-        turns.append((variant, cuda_ms(lambda: kernels[variant](q, k, v, causal=True), 10)))
-    with fa.plain_version():
-        plain_ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True), 3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10)
-    bound_ms, bound_by, detail, flops = attention_bound(q, k, True, None)
-    ms = {v: sum(t for w, t in turns if w == v) / 2 for v in kernels}
-    log(f"flash_attention B{B} Hq32 Hkv8 D128 S{S} bf16 causal, turns (wgmma, cuda_core, "
-        f"cuda_core, wgmma) {[round(t, 4) for _, t in turns]} ms: wgmma kernel "
-        f"{ms['wgmma']:.4f} ms ({flops / ms['wgmma'] / 1e9:.1f} TFLOP/s), CUDA-core kernel "
-        f"{ms['cuda_core']:.3f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {detail}); wgmma / sdpa "
-        f"{ms['wgmma'] / library_ms:.2f}, wgmma / bound {ms['wgmma'] / bound_ms:.2f}")
-    return {
-        fa.KERNEL_NAME[v]: dict(max_abs_err=err[v], ms=ms[v],
-                                turns_ms=[t for w, t in turns if w == v], plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        for v in kernels
+
+    def sdpa(q, k, v, window):
+        """The library yardstick: causal, or a boolean band mask for a window."""
+        if window is None:
+            return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)
+        pos = torch.arange(q.shape[2], device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)
+
+    def timed(label, qkv_, window, variants):
+        """The kernels in alternating turns (new, old, old, new), beside the
+        plain version, the library call and the bound, on one input."""
+        q, k, v = qkv_
+        turns = []
+        order = variants + variants[::-1]
+        for variant in order:
+            turns.append((variant, cuda_ms(
+                lambda: kernels[variant](q, k, v, causal=True, window=window), 10)))
+        with fa.plain_version():
+            plain_ms = cuda_ms(lambda: kops.flash_attention(q, k, v, causal=True, window=window),
+                               3)
+        library_ms = cuda_ms(sdpa(q, k, v, window), 10)
+        bound_ms, bound_by, detail, flops = attention_bound(q, k, True, window)
+        out = {}
+        for variant in variants:
+            ts = [t for w, t in turns if w == variant]
+            ms = sum(ts) / len(ts)
+            out[variant] = dict(ms=ms, turns_ms=ts, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=library_ms)
+            log(f"flash_attention {label}: {variant} kernel {ms:.4f} ms (turns "
+                f"{[round(t, 4) for t in ts]}; {flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain_ms:.3f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {detail}); / sdpa {ms / library_ms:.2f}, / bound "
+                f"{ms / bound_ms:.2f}")
+        return out
+
+    both = ["wgmma", "cuda_core"]
+    qwen = timed(f"B{B} Hq32 Hkv8 D128 S{S} bf16 causal", prefill_case, None, both)
+    gemma = {
+        "gemma3 global": timed(f"gemma3 global B{B} Hq16 Hkv8 D256 S{S} bf16 causal",
+                               gemma_case, None, both),
+        "gemma3 local": timed(f"gemma3 local B{B} Hq16 Hkv8 D256 S{S} bf16 window "
+                              f"{GEMMA3_WINDOW}", gemma_case, GEMMA3_WINDOW, both),
     }
+    f32_row = timed(f"B{B} Hq32 Hkv8 D128 S{S} float32 causal", f32_case, None,
+                    ["cuda_core"])["cuda_core"]
+    # the wgmma kernel's record at qwen3-4b's prefill shape, the CUDA-core
+    # kernel's in float32 (its dtype on every path); the other shapes beside
+    wgmma_rec = dict(max_abs_err=err["wgmma"], **qwen["wgmma"],
+                     shapes={label: t["wgmma"] for label, t in gemma.items()})
+    core_rec = dict(max_abs_err=err["cuda_core"], **f32_row,
+                    shapes={"qwen3-4b bf16 D128": qwen["cuda_core"],
+                            **{label: t["cuda_core"] for label, t in gemma.items()}})
+    return {fa.KERNEL_NAME["wgmma"]: wgmma_rec, fa.KERNEL_NAME["cuda_core"]: core_rec}
 
 
 # ------------------------------------------------------------- Daisy helpers
@@ -2573,6 +2633,8 @@ def full_width_phase(dev, arch, units, check_prompt):
                          for q, k, v, kw in seen)
         log(f"{arch} attention: {len(seen)} calls {attn_ms:.3f} ms through the kernel, bound "
             f"{attn_bound:.4f} ms ({attn_ms / attn_bound:.1f} times) on {card_line()}")
+    else:
+        attn_ms = attn_bound = None
     del seen
 
     def report(what, wall_ms, fn, reps):
@@ -2599,7 +2661,8 @@ def full_width_phase(dev, arch, units, check_prompt):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return counts, dict(prefill_ms=prefill_ms, decode_ms=decode_ms, prefill_idle=prefill_idle,
-                        decode_idle=decode_idle)
+                        decode_idle=decode_idle, attention_ms=attn_ms,
+                        attention_bound_ms=attn_bound)
 
 
 def main() -> int:
@@ -2636,11 +2699,13 @@ def main() -> int:
         for line in build.BUILD_LOG[name]["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    # every instantiation of the DC scan kernel, without a spill
-    dc_ptxas = build.BUILD_LOG["dc_pairs"]["ptxas"]
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", dc_ptxas)
-    if len(spills) < 10 or any(int(a) or int(b) for a, b in spills):
-        fail(f"dc_pairs.cu: {len(spills)} instantiations, spills {spills}")
+    # every instantiation of the DC scan kernel and of the wgmma flash
+    # kernel, without a spill
+    for name, n_inst in (("dc_pairs", 10), ("flash_attention_wgmma", 3)):
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            build.BUILD_LOG[name]["ptxas"])
+        if len(spills) < n_inst or any(int(a) or int(b) for a, b in spills):
+            fail(f"{name}.cu: {len(spills)} instantiations, spills {spills}")
 
     dc_measured = kernel_phase(dev)
     role_measured = role_scan_phase(dev)

@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel) for float32 operands and for head dims other than 64 and 128;
-// bf16 at those widths takes the tensor-core kernel in
+// _kernel) for float32 operands and for head dims other than 64, 128 and
+// 256; bf16 at those widths takes the tensor-core kernel in
 // flash_attention_wgmma.cu (kernels/flash_attention.py::kernel_variant).
 // q is (B, Hq, Sq, D), k and v are (B, Hkv, Sk, D), each given by its base
 // pointer and its batch, head and sequence strides in elements (the head
@@ -20,8 +20,8 @@
 // * D values, hundreds of flops a byte, so its bound is the tensor cores'
 // bf16 rate.  This design is the simple one: every product is a scalar
 // float32 FMA on the CUDA cores, so it sits far above that bound (for bf16
-// at widths 64 and 128 the wgmma kernel does the products on the tensor
-// cores).  What the design does:
+// at widths 64, 128 and 256 the wgmma kernel does the products on the
+// tensor cores).  What the design does:
 //   * one thread block of 128 threads per (batch * q head, tile of BQ query
 //     rows), the tiles with the most causal work launched first;
 //   * the kv loop runs only over the tiles the causal and window limits leave

@@ -2,8 +2,8 @@
 // wgmma for both products, TMA loads into a shared-memory ring.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel) for bf16 operands with head dim 64 or 128; float32 operands and
-// other head dims take the CUDA-core kernel (csrc/flash_attention.cu), and
+// _kernel) for bf16 operands with head dim 64, 128 or 256; float32 operands
+// and other head dims take the CUDA-core kernel (csrc/flash_attention.cu), and
 // kernels/flash_attention.py::kernel_variant chooses between the two.  q is
 // (B, Hq, Sq, D), k and v are (B, Hkv, Sk, D), each described to the TMA
 // unit as a 4-D tensor (D, S, H, B) with the caller's strides, so the
@@ -13,12 +13,17 @@
 // -1e30 (causal: key <= query; window: key > query - window; keys past Sk)
 // and p zeroed where masked; an online softmax with float32 m, l and acc;
 // out = acc / (l > 0 ? l : 1), written once in bf16.  The tensor cores
-// multiply bf16, so the float32 p is fed to the P V product as two bf16
-// parts, p_hi = bf16(p) and p_lo = bf16(p - p_hi), and O += p_hi V + p_lo V
-// keeps p to about 2^-16 of itself (the TPU kernel multiplies float32 p);
-// l sums the float32 p.  With p_hi alone (2^-9) the output moved by one bf16
-// step at |out| >= 4 on qwen3-4b's live activations, past the reference
-// tests' bf16 tolerance (atol 3e-2) that the result is held to.
+// multiply bf16, so at D 64 and 128 the float32 p is fed to the P V product
+// as two bf16 parts, p_hi = bf16(p) and p_lo = bf16(p - p_hi), and
+// O += p_hi V + p_lo V keeps p to about 2^-16 of itself (the TPU kernel
+// multiplies float32 p); l sums the float32 p.  With p_hi alone (2^-9) the
+// output moved by one bf16 step at |out| >= 4 on qwen3-4b's live
+// activations, past the reference tests' bf16 tolerance (atol 3e-2) that
+// the result is held to; the second part makes the tensor work 1.5 times
+// the nominal 4 D flops a visible pair.  At D 256 P V takes p_hi alone:
+// on one gemma3-12b unit's live calls it held that tolerance with the same
+// worst error as both parts (1.212e-2), and the second part cost 16% of
+// the calls' time (tools/flash_candidates.py, on an H100 at 700 W).
 //
 // What bounds it on this card: operations.  At qwen3-4b's prefill (B 2,
 // Hq 32, S 2048, D 128, causal) attention does 6.9e10 flops on 84 MB, some
@@ -27,9 +32,15 @@
 //   * one CTA per (batch * q head, 128-row q tile), the tiles with the most
 //     causal work launched first; two consumer warpgroups own 64 q rows
 //     each, and a producer warpgroup, one thread of which starts every
-//     load, hands its registers to them (setmaxnreg: 232 a consumer thread,
-//     where 384 threads get 168 at launch; at 168 the m64n128 products of
-//     S and O spilled);
+//     load, hands its registers to them (setmaxnreg: 232 a consumer thread
+//     at D 64 and 128, 240 at D 256, where 384 threads get 168 at launch;
+//     at 168 the m64n128 products of S and O spilled);
+//   * the kv tile: BK 128 keys at D 64 and 128; BK 64 at D 256, where 128
+//     keys would need 256 KB for the two stages of K and V (a block gets
+//     227 KB) and 256 registers of S, P and O a thread.  At BK 64 a
+//     consumer thread holds 32 S values, 16 registers of P and 128 of O,
+//     within the 192 the D-128 instance holds at BK 128; shared memory is
+//     Q 64 KB + 2 stages x (K + V) 128 KB, 193 KB aligned;
 //   * Q arrives once by TMA; K and V tiles of BK keys arrive by TMA into a
 //     ring of STAGES stages with full and empty mbarriers, so the loads of
 //     the next tiles overlap the products on this one; 128-byte swizzled
@@ -41,10 +52,13 @@
 //   * S = Q K^T is wgmma m64nBKk16 from shared memory into float32
 //     registers; the online softmax runs in those registers (a row's max
 //     is reduced over the four threads that hold it, its sum only once, at
-//     the end); P is packed, as its two bf16 parts, in the registers that
-//     wgmma reads as its A operand, so O += P V is two wgmma m64nDk16 a k
-//     step with V read from shared memory as a transposed (MN-major)
-//     operand;
+//     the end); P is packed, as its bf16 parts, in the registers that
+//     wgmma reads as its A operand, so O += P V is one wgmma m64nDk16 a
+//     part and k step with V read from shared memory as a transposed
+//     (MN-major) operand.  At D 256 it is one m64n256k16 across V's four
+//     panels (the descriptor's leading offset steps a panel), not two
+//     m64n128k16 on the halves of O: P's fragments are read once, and it
+//     is half the instructions;
 //   * each output element is written once, by the thread whose
 //     accumulator holds it.
 // The host encodes the three tensor maps with cuTensorMapEncodeTiled,
@@ -79,10 +93,6 @@ constexpr int BQ = 128;            // q rows a CTA: two consumer warpgroups of 6
 constexpr int STAGES = 2;          // K/V ring depth
 constexpr int CONSUMERS = 256;     // threads of the two consumer warpgroups
 constexpr int NTHREADS = CONSUMERS + 128;  // and the producer warpgroup
-// registers a thread after setmaxnreg hands the producer's to the
-// consumers: 40 x 128 + 232 x 256 <= 65,536 (at launch 384 threads get 168)
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
 constexpr int PANEL_COLS = 64;     // bf16 columns in one 128-byte swizzled panel
 
 struct KParams {
@@ -185,6 +195,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// S (+)= A B^T, m64n64k16: A and B K-major bf16 in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D += A B, m64n64k16: A bf16 in registers (four b32 a thread), B MN-major
 // (transposed) bf16 in shared memory (descriptor)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -223,6 +248,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A B, m64n256k16: A bf16 in registers (four b32 a thread), B MN-major
+// (transposed) bf16 in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ bool visible(int key, int row, const KParams& kp) {
   return key < kp.sk && (!kp.causal || key <= row) &&
          (!kp.has_window || (long long)key > (long long)row - kp.window);
@@ -235,6 +294,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int D, int BK>
 struct Tile {
+  static_assert(((D == 64 || D == 128) && BK == 128) || (D == 256 && BK == 64), "instances");
+  // registers a thread after setmaxnreg hands the producer's to the
+  // consumers (at launch 384 threads get 168): 40 x 128 + 232 x 256, and
+  // at D 256 24 x 128 + 240 x 256, within 65,536
+  static constexpr int PRODUCER_REGS = D == 256 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = D == 256 ? 240 : 232;
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <= 65536, "registers");
   static constexpr int PANELS = D / PANEL_COLS;
   static constexpr uint32_t Q_PANEL = BQ * 128;   // bytes of a 64-column panel of Q
   static constexpr uint32_t KV_PANEL = BK * 128;  // and of K or V
@@ -242,6 +308,7 @@ struct Tile {
   static constexpr uint32_t KV_BYTES = KV_PANEL * PANELS;
   // Q, then STAGES x (K, V), each 1024-byte aligned; 1024 more to align the base
   static constexpr size_t SMEM = Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + 1024;
+  static_assert(SMEM <= 232448 - 64, "a block's shared memory, the barriers beside it");
 };
 
 template <int D, int BK>
@@ -252,6 +319,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   using T = Tile<D, BK>;
   constexpr int NS = BK / 2;  // S values a consumer thread holds (two rows)
   constexpr int NO = D / 2;   // O values a consumer thread holds
+  constexpr bool kPLo = D != 256;  // P V adds p's low bf16 part (see the top)
   extern __shared__ uint8_t smem_raw[];
   // bars[0]: Q full; then per stage: K full, V full, slot empty
   __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
@@ -297,7 +365,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (tid >= CONSUMERS) {
     // the producer warpgroup: one thread starts every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
     if (tid == CONSUMERS && n_kt > 0) {
       mbar_expect_tx(bar(0), T::Q_BYTES);
 #pragma unroll
@@ -321,7 +389,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
   // a consumer thread: warpgroup wg holds q rows wg*64 .. +63 of the tile;
   // this thread holds rows row_a and row_a + 8 (the wgmma accumulator layout)
   const int wg = tid / 128;
@@ -355,8 +423,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const uint64_t da =
           smem_desc(sQ + (kk / 4) * T::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32, 16, 1024);
       const uint64_t db = smem_desc(sK + (kk / 4) * T::KV_PANEL + (kk % 4) * 32, 16, 1024);
-      static_assert(BK == 128, "S is one m64n128 product a k step");
-      wgmma_ss_n128(sc, da, db, 1);
+      if constexpr (BK == 128)
+        wgmma_ss_n128(sc, da, db, 1);
+      else
+        wgmma_ss_n64(sc, da, db, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -383,9 +453,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       alpha[r] = exp2f(m_run[r] - m_new);
       m_run[r] = m_new;
     }
-    // P as bf16 hi and lo parts, laid out as wgmma's A fragments: pa[kk]
-    // and pb[kk] cover keys 16 kk .. +15
-    uint32_t pa[BK / 16][4], pb[BK / 16][4];
+    // P as bf16 hi and (where kPLo) lo parts, laid out as wgmma's A
+    // fragments: pa[kk] and pb[kk] cover keys 16 kk .. +15
+    uint32_t pa[BK / 16][4], pb[kPLo ? BK / 16 : 1][4];
     float psum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NS; j += 2) {
@@ -401,7 +471,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
       const float2 hf = __bfloat1622float2(hi);
       pa[j / 8][(j / 2) % 4] = *reinterpret_cast<const uint32_t*>(&hi);
-      pb[j / 8][(j / 2) % 4] = pack_bf16(p0 - hf.x, p1 - hf.y);
+      if constexpr (kPLo) pb[j / 8][(j / 2) % 4] = pack_bf16(p0 - hf.x, p1 - hf.y);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
@@ -414,13 +484,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       fence_regs(pa[kk]);
-      fence_regs(pb[kk]);
+      if constexpr (kPLo) fence_regs(pb[kk]);
     }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t db = smem_desc(sV + kk * 16 * 128, T::KV_PANEL, 1024);
-      if constexpr (D == 128) {
+      if constexpr (D == 256) {
+        wgmma_rs_n256(o, pa[kk], db);
+        if constexpr (kPLo) wgmma_rs_n256(o, pb[kk], db);
+      } else if constexpr (D == 128) {
         wgmma_rs_n128(o, pa[kk], db);
         wgmma_rs_n128(o, pb[kk], db);
       } else {
@@ -537,9 +610,10 @@ extern "C" int fa_wgmma_args_size() { return (int)sizeof(FaWgArgs); }
 // Launch on `stream`; returns 0, cudaGetLastError() of the launch, or one
 // of the codes above.
 extern "C" int fa_wgmma_launch(const FaWgArgs* a, void* stream) {
-  if ((a->d != 64 && a->d != 128) || a->hkv <= 0 || a->hq % a->hkv || a->sq <= 0 || a->sk < 0 ||
+  if ((a->d != 64 && a->d != 128 && a->d != 256) || a->hkv <= 0 || a->hq % a->hkv || a->sq <= 0 || a->sk < 0 ||
       a->b * a->hq <= 0 || a->b * a->hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->d == 256) return launch<256, 64>(*a, s);
   return a->d == 64 ? launch<64, 128>(*a, s) : launch<128, 128>(*a, s);
 }

@@ -18,14 +18,14 @@ The pieces, beside each other:
   by dtype and head dim, and counts the launch under that kernel's name in
   ``LAUNCHES``:
 
-  - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 with head dim 64
-    or 128, both products on the tensor cores (``wgmma``), K and V tiles
-    by TMA into a shared-memory ring.  It reads its operands through TMA
+  - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 with head dim
+    64, 128 or 256, both products on the tensor cores (``wgmma``), K and V
+    tiles by TMA into a shared-memory ring.  It reads its operands through TMA
     tensor maps and raises on a layout TMA cannot take (``tma_strides``)
     rather than copying;
-  - ``"cuda_core"`` (``csrc/flash_attention.cu``): float32, or any head
-    dim up to 256 (a multiple of 8), every product a float32 FMA on the
-    CUDA cores.  It copies an operand once where its rows are not 16-byte
+  - ``"cuda_core"`` (``csrc/flash_attention.cu``): float32, and bf16 at
+    any other head dim up to 256 (a multiple of 8), every product a
+    float32 FMA on the CUDA cores.  It copies an operand once where its rows are not 16-byte
     aligned (``_kernel_operand``).
 
   Each kernel is also callable alone (``flash_attention_wgmma``,
@@ -61,7 +61,7 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the tensor-core kernel is compiled for
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 # the kernel each kernel_variant launches, as LAUNCHES names it
 KERNEL_NAME = {"wgmma": "flash_attention_wgmma", "cuda_core": "flash_attention"}
 
@@ -169,7 +169,7 @@ def flash_attention_plain(q, k, v, causal=True, window=None, scale=None) -> torc
 # ----------------------------------------------------------------- kernels
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores) for bf16
-    with head dim 64 or 128, ``"cuda_core"`` for everything else."""
+    with head dim 64, 128 or 256, ``"cuda_core"`` for everything else."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
@@ -352,7 +352,7 @@ def _wgmma_library():
 
 def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None) -> torch.Tensor:
     """The tensor-core kernel (``csrc/flash_attention_wgmma.cu``) on CUDA
-    tensors: bfloat16 with head dim 64 or 128, in a layout TMA takes
+    tensors: bfloat16 with head dim 64, 128 or 256, in a layout TMA takes
     (``tma_strides``).  One counted launch under ``"flash_attention_wgmma"``."""
     kernel = "flash_attention wgmma kernel"
     _check_kernel_operands(q, k, v, window, kernel)

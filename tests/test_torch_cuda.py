@@ -1,8 +1,8 @@
 """The port on the card: the CUDA ``dc_pair_scan``, ``dc_role_scan`` (also
 over every case of ``kernels/dc_scan_check.py``),
 ``semijoin`` (a hash build and probe) and the two flash-attention kernels
-(the tensor-core ``wgmma`` one for bf16 at head dims 64 and 128, the
-CUDA-core one for the rest) against their plain PyTorch versions, the
+(the tensor-core ``wgmma`` one for bf16 at head dims 64, 128 and 256,
+the CUDA-core one for the rest) against their plain PyTorch versions, the
 sharded pair scan (one launch over every logical shard,
 ``dc_scan_check.SHARDED_CASES``) and sharded detection against the CPU, the
 whole ``Daisy`` (SP and join queries) and the offline cleaner on the card
@@ -390,7 +390,7 @@ def _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=0):
     (torch.bfloat16, 8, 8, 300, 300, 128, True, 64),      # window, ragged S
     (torch.float32, 4, 1, 77, 1000, 128, False, None),    # Sq != Sk
     (torch.float32, 4, 4, 1, 1000, 64, False, None),      # D 64, one query
-    (torch.bfloat16, 8, 2, 130, 130, 256, True, None),    # D 256
+    (torch.bfloat16, 8, 2, 130, 130, 256, True, None),    # D 256: the wgmma kernel
     (torch.float32, 2, 1, 40, 40, 80, True, None),        # D 80, a multiple of 8
 ])
 def test_flash_kernel_matches_plain_version(card, dtype, hq, hkv, sq, sk, d, causal, window):
@@ -415,10 +415,14 @@ def test_flash_kernel_matches_plain_version(card, dtype, hq, hkv, sq, sk, d, cau
     (8, 2, 500, 500, 128, True, 64),        # window, ragged S
     (8, 2, 4096, 4096, 128, True, 1024),    # window 1024 at S 4096
     (4, 2, 1, 300, 64, False, None),        # one query row
+    (16, 8, 2048, 2048, 256, True, None),   # D 256: gemma3's global layer
+    (16, 8, 1100, 1100, 256, True, 1024),   # its local layer's window, ragged S
+    (4, 2, 1, 300, 256, False, None),       # D 256, one query row
 ])
 def test_wgmma_kernel_matches_plain_version(card, hq, hkv, sq, sk, d, causal, window):
-    """bf16 at head dim 64 and 128: the tensor-core kernel, one launch of it
-    and none of the CUDA-core kernel, at the reference's bf16 tolerance."""
+    """bf16 at head dim 64, 128 and 256: the tensor-core kernel, one launch
+    of it and none of the CUDA-core kernel, at the reference's bf16
+    tolerance."""
     q, k, v = _qkv(card, torch.bfloat16, 1 if sq == 4096 else 2, hq, hkv, sq, sk, d, seed=3)
     before = dict(fa.LAUNCHES)
     got = tops.flash_attention(q, k, v, causal=causal, window=window)

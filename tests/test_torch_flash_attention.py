@@ -80,15 +80,19 @@ def test_noncausal_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-def test_bf16_io_matches_pallas():
-    q, k, v = qkv(7, 1, 2, 2, 128, 128, 64)
+@pytest.mark.parametrize("hq,hkv,d,window", [
+    (2, 2, 64, None),
+    (4, 2, 256, 32),   # gemma3's head dim, windowed, as its local layers
+])
+def test_bf16_io_matches_pallas(hq, hkv, d, window):
+    q, k, v = qkv(7, 1, hq, hkv, 128, 128, d)
     jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
-    want = flash_attention_pallas(jq, jk, jv, causal=True, block_q=64, block_kv=64,
-                                  interpret=True)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, window=window, block_q=64,
+                                  block_kv=64, interpret=True)
     # the same bf16 values on both sides
     tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
                   for x in (jq, jk, jv))
-    got = tops.flash_attention(tq, tk, tv, causal=True)
+    got = tops.flash_attention(tq, tk, tv, causal=True, window=window)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=3e-2)
 
@@ -181,9 +185,9 @@ def test_launch_counter_starts_at_zero_after_reset():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_kernel_variant_by_dtype_and_head_dim(dtype, d):
-    """bf16 at head dim 64 or 128 takes the tensor-core kernel; everything
-    else the CUDA-core kernel (which raises on float16 itself)."""
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
+    """bf16 at head dim 64, 128 or 256 takes the tensor-core kernel;
+    everything else the CUDA-core kernel (which raises on float16 itself)."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) else "cuda_core"
     assert fa.kernel_variant(dtype, d) == want
     assert fa.KERNEL_NAME[want] in fa.LAUNCHES
 
@@ -203,6 +207,8 @@ def test_tma_layout_is_checked_not_copied():
     not a multiple of 16 bytes is refused, not copied."""
     x = torch.zeros((2, 300, 8, 128), dtype=torch.bfloat16).transpose(1, 2)
     assert fa.tma_strides(x, "q") == [300 * 8 * 128, 128, 8 * 128]
+    wide = torch.zeros((2, 300, 16, 256), dtype=torch.bfloat16).transpose(1, 2)  # gemma3's
+    assert fa.tma_strides(wide, "q") == [300 * 16 * 256, 256, 16 * 256]
     one = torch.zeros((1, 1, 5, 64), dtype=torch.bfloat16)  # size-1 dims: packed strides
     assert fa.tma_strides(one, "k") == [5 * 64, 5 * 64, 64]
     ragged_rows = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16)[..., :64]
