@@ -7,11 +7,13 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels (``src/repro_torch/csrc/dc_pairs.cu``,
-   ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
-   ``semijoin.cu``) with nvcc, one process each, at once; log what
-   ``ptxas`` says of registers and spills, and fail if any of the DC scan's
-   ten instantiations or the wgmma flash kernel's three (D 64, 128, 256)
-   spills;
+   ``flash_attention.cu``, ``flash_attention_wgmma.cu``,
+   ``flash_attention_bwd.cu`` and ``semijoin.cu``) with nvcc, one process
+   each, at once; log what ``ptxas`` says of registers and spills, and fail
+   if any of the DC scan's ten instantiations, the wgmma flash kernel's
+   three (D 64, 128, 256) or the backward's twenty-four (three kernels on
+   the CUDA cores at widths 64, 128 and 256 in float32 and bf16, and on
+   the tensor cores at 64 and 128) spills;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros, then over every case of ``kernels/dc_scan_check.py`` (each
@@ -148,11 +150,38 @@ Phases, each of which must pass or the script exits non-zero:
    largest; an MoE model reports how many expert choices differ); (c) each
    attention call's live (q, k, v), captured in one more prefill, through
    the kernel against the plain version at bf16 ``atol=3e-2``; then
-   ``torch.profiler``'s device time of a prefill and of four decode steps.
+   ``torch.profiler``'s device time of a prefill and of four decode steps;
+19. training: (a) the flash-attention backward kernels
+   (``csrc/flash_attention_bwd.cu``, built with the others and checked for
+   spills) against ``flash_attention_bwd_plain`` on the card, in the
+   variant ``bwd_variant`` picks (tensor cores for bf16 at D 64 and 128)
+   and, where that is the tensor cores, forced onto the CUDA cores too,
+   float32 at max |err| <= 1e-4 x max |ref| and bf16 at <= 2e-2 x max
+   |ref|, over
+   qwen3-4b's shape (B 2, Hq 32, Hkv 8, S 2,048, D 128, bf16, causal), the
+   same in float32 at S 1,024, D 64 non-causal Sq 77 against Sk 1,000, a
+   window of 64 at ragged S 500, gemma3's D 256 with a window of 1,024 at S
+   1,100, D 16 and rows that see no key (a zero gradient), two launches of
+   each case the same bits; then both variants' times in alternating turns
+   at qwen3-4b's shape beside the plain backward's, SDPA's backward (``scaled_dot_product_attention``
+   with ``enable_gqa``, forward and backward less the forward) and the
+   bound; (b) reduced qwen3-4b, olmoe-1b-7b and falcon-mamba-7b in float32
+   compute: two AdamW steps on the card against the same steps on the CPU
+   (loss, grad norm, parameters); (c) the main path ``train``: qwen3-4b at
+   its published width cut to 4 of its 36 layers (float32 masters, bf16
+   compute, AdamW, remat), B 2 x S 2,048 batches drawn through the port's
+   ``CleanDataPipeline`` (Daisy cleaning the corpus metadata on the card),
+   five steps of ``launch.train.train`` with a checkpoint after step 3.
+   Before it, step 1's loss and gradients through the kernels against
+   ``plain_version()``; after it, the loss must have fallen, the run is
+   resumed from the checkpoint and its steps 4 and 5 must equal the
+   uninterrupted ones bit for bit (loss, lr, grad norm, parameters), and one step is split into forward, backward and
+   optimizer (CUDA events) and profiled (``torch.profiler``: idle share),
+   beside ``torch.cuda.max_memory_allocated``.
 
 Each main path (FD, DC, join, offline, ingest, service, the sharded
-Daisy, each LM model's prefill and decode, the engine) runs with every
-kernel's launch count at 0, read just after; the counts must be as
+Daisy, each LM model's prefill and decode, the engine, training) runs with
+every kernel's launch count at 0, read just after; the counts must be as
 ``PATH_LAUNCHES`` says: the role scan, the semijoin and the CUDA-core
 flash kernel lie on none of them.  The line before the
 last is a JSON object describing each kernel, its launches summed over
@@ -257,14 +286,48 @@ DIST_BIG_ROWS, DIST_BIG_REGIONS = 1_048_576, 32_768
 #   calls (non-causal over the encoder's 1,500 frames): 96;
 # * gemma3-12b cut to one unit: 5 local and 1 global layer at head dim 256,
 #   the wgmma kernel's, 6.
+# * training (the "train" path): qwen3-4b at full width cut to 4 layers,
+#   five steps under remat: each step runs each layer's forward twice (the
+#   step, then its recompute in the backward), the wgmma kernel's 4 x 2 a
+#   step, and each layer's backward once (one counted launch of the three
+#   backward kernels): 40 and 20.
 # The CUDA-core kernel (float32, other head dims) lies on no main path.
+TRAIN_UNITS, TRAIN_STEPS, TRAIN_CKPT_AT = 4, 5, 3
 PATH_LAUNCHES = {
     "fd": {}, "dc": {"dc_pair_scan": None}, "join": {}, "offline": {"dc_pair_scan": 1},
     "ingest": {"dc_pair_scan": None}, "service": {"dc_pair_scan": None},
     "dist": {"dc_pair_scan": None}, "lm": {"flash_attention_wgmma": 36}, "engine": {},
     "lm_olmoe": {"flash_attention_wgmma": 16}, "lm_falcon_mamba": {},
     "lm_whisper": {"flash_attention_wgmma": 96}, "lm_gemma3": {"flash_attention_wgmma": 6},
+    "train": {"flash_attention_wgmma": 2 * TRAIN_UNITS * TRAIN_STEPS,
+              "flash_attention_bwd": TRAIN_UNITS * TRAIN_STEPS},
 }
+# The training phase.  The backward kernels' cases: (label, b, hq, hkv, sq,
+# sk, d, dtype name, causal, window); the first is timed.  Tolerances on
+# max |kernel - plain| / max |plain| per gradient: float32 at 1e-4 (sums in
+# another order), bf16 at 2e-2 (both sides read the same bf16 operands;
+# the tensor-core kernels also round P and dS to bf16 for their products,
+# within 6.6e-3 at worst on an H100).
+FLASH_BWD_CASES = (
+    ("qwen3-4b", 2, 32, 8, 2048, 2048, 128, "bfloat16", True, None),
+    ("qwen3-4b float32 S 1,024", 2, 32, 8, 1024, 1024, 128, "float32", True, None),
+    ("D 64 non-causal Sq 77 Sk 1,000", 2, 8, 2, 77, 1000, 64, "bfloat16", False, None),
+    ("window 64 ragged S 500", 2, 8, 2, 500, 500, 128, "bfloat16", True, 64),
+    ("gemma3 D 256 window 1,024 S 1,100", 1, 16, 8, 1100, 1100, 256, "bfloat16", True, 1024),
+    ("D 16", 2, 4, 2, 96, 96, 16, "float32", True, None),
+    ("rows that see no key", 1, 4, 2, 40, 8, 64, "float32", True, 4),
+)
+FLASH_BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the reduced configs trained on the card against the CPU (float32 compute)
+TRAIN_REDUCED = ("qwen3-4b", "olmoe-1b-7b", "falcon-mamba-7b")
+# the full-width run: B 2 x S 2,048 from a 1,024-document corpus, AdamW at
+# 3e-4 after a one-step warmup (the reference's 100-step warmup would keep
+# five steps near lr 0)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DOCS, TRAIN_LR, TRAIN_WARMUP = 2, 2048, 1024, 3e-4, 1
+# step 1 through the kernels against plain_version(): both are bf16 networks
+# whose attention outputs round apart; loss within 1e-3 relative, each
+# gradient leaf within 5e-2 in relative L2 norm
+TRAIN_PLAIN_LOSS_RTOL, TRAIN_PLAIN_GRAD_REL = 1e-3, 5e-2
 
 
 def log(msg: str) -> None:
@@ -318,9 +381,9 @@ def same_scan(got, want, what: str) -> float:
 
 
 def _counted():
-    from repro_torch.kernels import dc_pairs, flash_attention, semijoin
+    from repro_torch.kernels import dc_pairs, flash_attention, flash_attention_bwd, semijoin
 
-    return dc_pairs, semijoin, flash_attention
+    return dc_pairs, semijoin, flash_attention, flash_attention_bwd
 
 
 def reset_counts() -> None:
@@ -2665,6 +2728,355 @@ def full_width_phase(dev, arch, units, check_prompt):
                         attention_bound_ms=attn_bound)
 
 
+# ------------------------------------------------------------------ phase 19
+def visible_pairs(sq, sk, causal, window) -> int:
+    """Query-key pairs the mask leaves, per (batch, head)."""
+    pairs = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def flash_bwd_bound(q, k, causal, window):
+    """Least time of one attention backward on an H100: the larger of its
+    FLOPs (five products of 2 D per visible pair and head: Q K^T again,
+    dO V^T, P^T dO, dS K and dS^T Q) over the peak rate of its dtype and its
+    bytes (q, k, v, o and do read once, dq, dk and dv written once) over HBM
+    bandwidth."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    flops = 5 * 2 * d * visible_pairs(sq, sk, causal, window) * b * hq
+    nbytes = (4 * b * hq * sq * d + 4 * b * hkv * sk * d) * q.element_size()
+    peak = PEAK_F32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    detail = f"{flops:.4e} flops, {nbytes} bytes"
+    if t_ops >= t_bytes:
+        return t_ops, "operations", detail, flops
+    return t_bytes, "bytes", detail, flops
+
+
+def flash_bwd_phase(dev):
+    """(a): the backward kernels against the plain backward on every case
+    of ``FLASH_BWD_CASES``, in the variant ``bwd_variant`` picks and forced
+    onto the CUDA cores, two launches the same bits; then both variants'
+    times in alternating turns at qwen3-4b's shape beside the plain
+    backward, SDPA's backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = {}
+    max_err = 0.0
+    timed = None
+    for label, b, hq, hkv, sq, sk, d, dt, causal, window in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                                     (b, hq, sq, d)))
+        kw = dict(causal=causal, window=window)
+        o = fa.flash_attention(q, k, v, **kw)  # the forward kernel's output
+        want = fab.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        chosen = fab.bwd_variant(dtype, d)
+        for variant in ("auto", "cuda_core") if chosen == "mma" else ("auto",):
+            name = chosen if variant == "auto" else variant
+            before = fab.LAUNCHES["flash_attention_bwd"]
+            got = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
+            again = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
+            torch.cuda.synchronize()
+            if fab.LAUNCHES["flash_attention_bwd"] != before + 2:
+                fail(f"flash backward {label} ({name}): "
+                     f"{fab.LAUNCHES['flash_attention_bwd'] - before} launches for 2 calls")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash backward {label} ({name}): two launches differ")
+            rels = []
+            for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+                if g.dtype != dtype or g.shape != w.shape:
+                    fail(f"flash backward {label} ({name}) {grad}: {g.dtype}{tuple(g.shape)}")
+                e = max_abs_err(g, w)
+                ref = float(w.float().abs().max())
+                rels.append(e / ref if ref > 0 else e)
+                if variant == "auto":
+                    max_err = max(max_err, e)
+            if max(rels) > FLASH_BWD_REL_TOL[dt]:
+                fail(f"flash backward {label} ({name}): max |err| / max |ref| (dq, dk, dv) "
+                     f"{rels} above {FLASH_BWD_REL_TOL[dt]}")
+            if label == "rows that see no key":
+                blind = torch.arange(sq, device=dev) - window + 1 >= sk
+                if not blind.any() or (got[0][:, :, blind] != 0).any():
+                    fail("flash backward: a row that sees no key has a gradient")
+            key = f"{dt} {name}"
+            worst[key] = max(worst.get(key, 0.0), max(rels))
+            log(f"flash backward == plain: {label} ({dt}, {name}): max |err| / max |ref| (dq, "
+                f"dk, dv) {[f'{r:.3e}' for r in rels]}, two launches the same bits")
+        if timed is None:
+            timed = (label, q, k, v, o, do, kw)
+        del q, k, v, o, do, got, again, want
+    log(f"flash backward: worst max |err| / max |ref| {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
+        f"(tolerances {FLASH_BWD_REL_TOL})")
+
+    label, q, k, v, o, do, kw = timed
+    turns = {"auto": [], "cuda_core": []}
+    for variant in ("auto", "cuda_core", "cuda_core", "auto"):
+        turns[variant].append(cuda_ms(lambda: fab.flash_attention_bwd_cuda(
+            q, k, v, o, do, variant=variant, **kw), 10))
+    ms, core_ms = (sum(turns[v]) / 2 for v in ("auto", "cuda_core"))
+    plain_ms = cuda_ms(lambda: fab.flash_attention_bwd_plain(q, k, v, o, do, **kw), 3)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=kw["causal"],
+                                              enable_gqa=True)
+
+    sdpa_fwd_ms = cuda_ms(sdpa, 10)
+    sdpa_both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), 10)
+    library_ms = sdpa_both_ms - sdpa_fwd_ms
+    bound_ms, bound_by, detail, flops = flash_bwd_bound(q, k, kw["causal"], kw["window"])
+    log(f"flash backward {label} B{q.shape[0]} Hq{q.shape[1]} Hkv{k.shape[1]} S{q.shape[2]} "
+        f"D{q.shape[3]} {q.dtype}: tensor-core kernels {ms:.4f} ms (turns "
+        f"{[round(t, 4) for t in turns['auto']]}; {flops / ms / 1e9:.1f} TFLOP/s of the bound's "
+        f"flops), CUDA-core kernels {core_ms:.4f} ms (turns "
+        f"{[round(t, 4) for t in turns['cuda_core']]}), plain {plain_ms:.3f} ms, sdpa backward "
+        f"{library_ms:.4f} ms (forward and backward {sdpa_both_ms:.4f}, forward "
+        f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; {detail}); / sdpa "
+        f"{ms / library_ms:.2f}, / bound {ms / bound_ms:.2f} on {card_line()}")
+    del q, k, v, o, do, qg, kg, vg
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, ms=ms, turns_ms=turns["auto"], cuda_core_ms=core_ms,
+                cuda_core_turns_ms=turns["cuda_core"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, sdpa_fwd_bwd_ms=sdpa_both_ms,
+                sdpa_fwd_ms=sdpa_fwd_ms, worst_rel_err=worst)
+
+
+def train_reduced_phase(dev):
+    """(b): reduced configs in float32 compute, two AdamW steps on the card
+    against the same two on the CPU, from the same seeded weights and
+    batches: loss and grad norm at ``rtol=1e-4``, parameters at ``atol = 2
+    lr_t`` plus ``rtol=1e-5`` (tests/test_torch_train.py's reason: AdamW's
+    first step turns a gradient near 0 into about +-1)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optim as topt
+    from repro_torch.train.steps import make_train_step
+
+    for arch in TRAIN_REDUCED:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  compute_dtype="float32").canonicalize(tp=1)
+        master = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        opt_cfg = topt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+        rng = np.random.default_rng(0)
+        toks = [rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32) for _ in range(2)]
+        runs = {}
+        for where in ("cpu", dev):
+            params = topt.tree_map(lambda p: p.to(where, copy=True), master)
+            state = topt.init_opt_state(params, opt_cfg)
+            step = make_train_step(cfg, opt_cfg, mamba_chunk=8)
+            rows = []
+            for t in toks:
+                t = torch.from_numpy(t).to(where)
+                params, state, m = step(params, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+                rows.append({k: float(v) for k, v in m.items()})
+            runs[where] = (rows, topt.tree_items(params))
+        worst = 0.0
+        for (cm, gm) in zip(runs["cpu"][0], runs[dev][0]):
+            for key in ("loss", "grad_norm", "lr"):
+                if not np.isclose(gm[key], cm[key], rtol=1e-4, atol=0):
+                    fail(f"train {arch} (reduced, float32): {key} on the card {gm[key]} against "
+                         f"{cm[key]} on the CPU")
+        lr = runs["cpu"][0][-1]["lr"]
+        for (path, a), (_, b) in zip(runs["cpu"][1], runs[dev][1]):
+            b = b.cpu()
+            try:
+                torch.testing.assert_close(b, a, atol=2 * lr, rtol=1e-5)
+            except AssertionError as exc:
+                fail(f"train {arch} (reduced, float32): parameter {path}: {exc}")
+            worst = max(worst, max_abs_err(b, a) / lr)
+        log(f"train {arch} (reduced, float32): two steps on the card == on the CPU: losses "
+            f"{[round(r['loss'], 6) for r in runs[dev][0]]} (CPU "
+            f"{[round(r['loss'], 6) for r in runs['cpu'][0]]}), parameters within "
+            f"{worst:.3f} lr_t")
+
+
+def train_step1_check(opts):
+    """(c), before the main run: step 1's loss and gradients through the
+    kernels against the same through ``plain_version()``, from the run's
+    seeded weights and its first batch."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as tl
+    from repro_torch.train import optim as topt
+    from repro_torch.train.steps import _grads
+
+    cfg, pipe, workload, params = tl.prepare(opts)
+    batch = next(pipe.batches(workload, 1))
+    loss, grads = _grads(params, cfg, batch, 32)
+    with fa.plain_version():
+        ploss, pgrads = _grads(params, cfg, batch, 32)
+    torch.cuda.synchronize()
+    loss, ploss = float(loss), float(ploss)
+    if abs(loss - ploss) > TRAIN_PLAIN_LOSS_RTOL * abs(ploss):
+        fail(f"train step 1: loss {loss} through the kernels, {ploss} through the plain version")
+    rel = {}
+    for (path, g), (_, w) in zip(topt.tree_items(grads), topt.tree_items(pgrads)):
+        wn = float(w.float().norm())
+        rel[path] = float((g.float() - w.float()).norm()) / wn if wn > 0 else float(g.norm())
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TRAIN_PLAIN_GRAD_REL:
+        fail(f"train step 1: gradient {worst} {rel[worst]:.3e} apart (relative L2) through the "
+             f"kernels and the plain version")
+    log(f"train step 1 through the kernels == plain_version(): loss {loss:.6f} against "
+        f"{ploss:.6f}, worst gradient leaf {worst} at {rel[worst]:.3e} relative L2 "
+        f"(tolerances {TRAIN_PLAIN_LOSS_RTOL}, {TRAIN_PLAIN_GRAD_REL})")
+    del params, grads, pgrads, pipe
+    torch.cuda.empty_cache()
+    return dict(loss=loss, plain_loss=ploss, worst_grad_rel=rel[worst], worst_grad_leaf=worst)
+
+
+def train_phase(dev):
+    """(c): the main path ``train`` (see the module docstring).  Returns its
+    launch counts and its measurements."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import optim as topt
+    from repro_torch.train.steps import make_train_step
+
+    opts = tl.TrainOptions(arch="qwen3-4b", units=TRAIN_UNITS, steps=TRAIN_STEPS,
+                           batch_docs=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                           warmup_steps=TRAIN_WARMUP, n_docs=TRAIN_DOCS,
+                           ckpt_every=TRAIN_CKPT_AT, device=dev)
+    measured = {"step1_vs_plain": train_step1_check(opts)}
+    ckpt = tempfile.mkdtemp(prefix="_train_ckpt_", dir=HERE)
+    try:
+        kept = {}
+
+        def on_step(step, params, opt_state, row):
+            if step == TRAIN_CKPT_AT:  # the uninterrupted step 4
+                kept["params"] = [p.clone() for p in topt.tree_leaves(params)]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = tl.train(dataclasses.replace(opts, ckpt_dir=ckpt), on_step=on_step, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        metrics, cfg = run.metrics, run.cfg
+        final = topt.tree_leaves(run.params)
+        n_params = sum(p.numel() for p in final)
+        losses = [m["loss"] for m in metrics]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            fail(f"train: losses {losses} do not fall")
+        log(f"train qwen3-4b ({cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+            f"parameters, B {TRAIN_BATCH} x S {TRAIN_SEQ}): {TRAIN_STEPS} steps in {wall:.3f} s "
+            f"with the pipeline and a checkpoint; losses {[round(x, 4) for x in losses]}, grad "
+            f"norms {[round(m['grad_norm'], 4) for m in metrics]}, step seconds "
+            f"{[round(m['seconds'], 4) for m in metrics]}; peak memory {peak_gb:.2f} GB; "
+            f"cleaning progress {run.pipe.cleaning_progress()}")
+        del run
+        torch.cuda.empty_cache()
+
+        # the same run restored from its step-3 checkpoint: steps 4 and 5
+        # must be the uninterrupted ones, bit for bit
+        diffs = {}
+
+        def compare(step, params, opt_state, row):
+            if step == TRAIN_CKPT_AT:
+                for (path, a), b in zip(topt.tree_items(params), kept.pop("params")):
+                    diffs[path] = max_abs_err(a, b)
+
+        t0 = time.perf_counter()
+        resumed = tl.train(dataclasses.replace(opts, ckpt_dir=ckpt), on_step=compare, log=log)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        if resumed.start != TRAIN_CKPT_AT or len(resumed.metrics) != TRAIN_STEPS - TRAIN_CKPT_AT:
+            fail(f"train resume: restored at {resumed.start}, ran {len(resumed.metrics)} steps")
+        for (path, a), b in zip(topt.tree_items(resumed.params), final):
+            diffs[f"{path} (step {TRAIN_STEPS})"] = max_abs_err(a, b)
+        del final
+        worst = max(diffs, key=diffs.get)
+        for got, want in zip(resumed.metrics, metrics[TRAIN_CKPT_AT:]):
+            if got["loss"] != want["loss"] or got["lr"] != want["lr"]:
+                fail(f"train resume: step {got['step'] + 1} loss {got['loss']} lr {got['lr']} "
+                     f"against {want['loss']}, {want['lr']} uninterrupted: the forward differs")
+            if got["grad_norm"] != want["grad_norm"]:
+                fail(f"train resume: step {got['step'] + 1} grad norm {got['grad_norm']} against "
+                     f"{want['grad_norm']}: the backward differs")
+        if diffs[worst] != 0:
+            fail(f"train resume: largest parameter difference {diffs[worst]} at {worst}: the "
+                 "update differs")
+        log(f"train resume: restored step {TRAIN_CKPT_AT} and ran steps {TRAIN_CKPT_AT + 1}-"
+            f"{TRAIN_STEPS} in {resume_s:.3f} s (init, restore, {TRAIN_CKPT_AT} replayed requests, "
+            f"{TRAIN_STEPS - TRAIN_CKPT_AT} steps); each == the uninterrupted step: losses "
+            f"{[m['loss'] for m in resumed.metrics]}, grad norms "
+            f"{[m['grad_norm'] for m in resumed.metrics]}, largest parameter difference "
+            f"{diffs[worst]}")
+
+        # one step split into forward, backward and optimizer, and profiled
+        params, opt_state = resumed.params, resumed.opt_state
+        opt_cfg = topt.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, min(cfg.vocab_size, 1024), (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        split = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            tracked = topt.tree_map(lambda p: p.detach().requires_grad_(), params)
+            ev[0].record()
+            loss, _ = tt.loss_fn(tracked, cfg, batch, mamba_chunk=32)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, topt.tree_leaves(tracked))
+            ev[2].record()
+            topt.apply_updates(params, topt.tree_unflatten(params, grads), opt_state, opt_cfg)
+            ev[3].record()
+            torch.cuda.synchronize()
+            split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+            del tracked, loss, grads
+        fwd_ms, bwd_ms, opt_ms = split[-1]
+        step_fn = make_train_step(cfg, opt_cfg, mamba_chunk=32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        busy, top = device_profile(lambda: step_fn(params, opt_state, batch), 1)
+        idle = max(0.0, 1 - busy / step_ms) if busy > 0 else None
+        log(f"train step split (CUDA events): forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
+            f"optimizer {opt_ms:.3f} ms; one step {step_ms:.3f} ms, kernels busy {busy:.3f} ms "
+            f"(idle share {'not measured' if idle is None else f'{idle:.3f}'}); top {top} on "
+            f"{card_line()}")
+        measured.update(
+            losses=losses, grad_norms=[m["grad_norm"] for m in metrics],
+            step_s=[m["seconds"] for m in metrics], wall_s=wall, peak_memory_gb=peak_gb,
+            resume_s=resume_s, forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
+            step_ms=step_ms, kernel_busy_ms=busy, idle_share=idle, n_params=n_params)
+        del resumed, params, opt_state, step_fn
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts, measured
+
+
 def main() -> int:
     import torch
 
@@ -2690,7 +3102,8 @@ def main() -> int:
 
     # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    names = ("dc_pairs", "flash_attention", "flash_attention_wgmma", "semijoin")
+    names = ("dc_pairs", "flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+             "semijoin")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(lambda n: build.build_library(n, verbose_ptxas=True), names))
     log(f"built {[os.path.relpath(p, HERE) for p in libs]} in "
@@ -2699,9 +3112,11 @@ def main() -> int:
         for line in build.BUILD_LOG[name]["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    # every instantiation of the DC scan kernel and of the wgmma flash
-    # kernel, without a spill
-    for name, n_inst in (("dc_pairs", 10), ("flash_attention_wgmma", 3)):
+    # every instantiation of the DC scan kernel, of the wgmma flash kernel
+    # and of the backward's three kernels (3 widths x 2 dtypes on the CUDA
+    # cores, 2 widths on the tensor cores), without a spill
+    for name, n_inst in (("dc_pairs", 10), ("flash_attention_wgmma", 3),
+                         ("flash_attention_bwd", 24)):
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                             build.BUILD_LOG[name]["ptxas"])
         if len(spills) < n_inst or any(int(a) or int(b) for a, b in spills):
@@ -2741,6 +3156,10 @@ def main() -> int:
     for path, arch, units, check_prompt in FULL_WIDTH:
         paths[path], full_width[arch] = full_width_phase(dev, arch, units, check_prompt)
     log(f"full-width LM timings on {card_line()}: {json.dumps(full_width)}")
+    bwd_measured = flash_bwd_phase(dev)
+    train_reduced_phase(dev)
+    paths["train"], train_measured = train_phase(dev)
+    bwd_measured["train"] = train_measured
     for path, counts in paths.items():
         log(f"{path} path launches: {counts}")
         for kernel, n in counts.items():
@@ -2749,19 +3168,23 @@ def main() -> int:
                 fail(f"the {path} path launched {kernel} {n} times, expected "
                      f"{'at least one' if want is None else want}")
     measured = {"dc_pair_scan": dc_measured, **flash_measured,
-                "dc_role_scan": role_measured, "semijoin": semijoin_measured}
+                "dc_role_scan": role_measured, "semijoin": semijoin_measured,
+                "flash_attention_bwd": bwd_measured}
     where = {
         "dc_pair_scan": ("dc_pairs.cu", "dc_pairs.py:445"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:101"),
         "flash_attention_wgmma": ("flash_attention_wgmma.cu", "flash_attention.py:101"),
         "dc_role_scan": ("dc_pairs.cu", "dc_pairs.py:238"),
         "semijoin": ("semijoin.cu", "semijoin.py:32"),
+        # the gradient of flash_attention_pallas's function, which the
+        # reference takes by autodiff of its plain route
+        "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention.py:101"),
     }
     records = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
              replaces=f"src/repro/kernels/{tpu}",
-             launches=sum(counts[name] for counts in paths.values()),
-             path_launches={path: counts[name] for path, counts in paths.items()},
+             launches=sum(counts.get(name, 0) for counts in paths.values()),
+             path_launches={path: counts.get(name, 0) for path, counts in paths.items()},
              **measured[name])
         for name, (src, tpu) in where.items()
     ]

@@ -12,6 +12,8 @@ from the same seed).
   pairs at a requested rate.
 * ``hospital_like``: FD zip -> city and zip -> state over a hospital-style
   table with a known clean version (the query service's workload).
+* ``token_metadata_relation``: a training corpus's document metadata with
+  FD source -> language (the training data pipeline's cleaning target).
 """
 
 from __future__ import annotations
@@ -122,3 +124,25 @@ def hospital_like(n: int, error_frac: float = 0.05, seed: int = 4) -> DirtyDatas
     ds = inject_fd_errors(data, "zip", "city", 1.0, error_frac, seed=seed + 1)
     ds2 = inject_fd_errors(ds.data, "zip", "state", 1.0, error_frac, seed=seed + 2)
     return DirtyDataset(ds2.data, ds.truth, ds.error_rows | ds2.error_rows)
+
+
+def token_metadata_relation(
+    n_docs: int,
+    n_sources: int = 64,
+    error_frac: float = 0.1,
+    seed: int = 5,
+) -> DirtyDataset:
+    """Training-corpus metadata: doc -> (source, language, quality_score).
+    FD source -> language is the cleaning target of the data pipeline
+    (a mislabeled language corrupts sampling filters)."""
+    rng = np.random.default_rng(seed)
+    source = rng.integers(0, n_sources, n_docs).astype(np.int32)
+    lang_of_source = rng.integers(0, 16, n_sources).astype(np.int32)
+    data = {
+        "doc_id": np.arange(n_docs, dtype=np.int32),
+        "source": source,
+        "language": lang_of_source[source],
+        "quality": rng.uniform(0, 1, n_docs).astype(np.float32),
+        "length": rng.integers(100, 4096, n_docs).astype(np.int32),
+    }
+    return inject_fd_errors(data, "source", "language", 1.0, error_frac, seed=seed + 1)

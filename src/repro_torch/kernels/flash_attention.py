@@ -1,5 +1,5 @@
-"""Flash-attention forward: the two CUDA kernels, their wrapper, and the
-plain PyTorch versions.
+"""Flash attention: the two forward CUDA kernels, their wrapper with its
+autograd, and the plain PyTorch versions.
 
 Forward attention with an online softmax: q (B, Hq, Sq, D), k and v
 (B, Hkv, Sk, D), Hq a multiple of Hkv (GQA maps query head h to kv head
@@ -33,6 +33,12 @@ The pieces, beside each other:
   failed build or launch raises.  There is no fallback from the card to
   the plain version; ``plain_version()`` forces it explicitly, for
   comparisons on the card.
+
+  Where an operand requires a gradient, the call goes through an autograd
+  ``Function``: its forward is the call above and saves q, k, v and the
+  output; its backward is ``kernels.flash_attention_bwd``: the kernels of
+  ``csrc/flash_attention_bwd.cu`` on CUDA tensors, the plain backward on
+  CPU tensors or when the forward ran inside ``plain_version()``.
 * ``attention`` — the oracle: softmax over the whole masked score matrix,
   ``-inf`` logits and the ``row_visible`` guard for rows with no key.
 * ``attention_blocked`` — the same online-softmax tiling as the TPU kernel
@@ -65,10 +71,14 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 # the kernel each kernel_variant launches, as LAUNCHES names it
 KERNEL_NAME = {"wgmma": "flash_attention_wgmma", "cuda_core": "flash_attention"}
 
-# launches of each CUDA kernel, counted by the wrapper at each launch
+# launches of each forward CUDA kernel, counted by the wrapper at each launch
+# (the backward counts its own, in kernels.flash_attention_bwd)
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
-_state = threading.local()
+# depth of open plain_version() contexts.  Process-wide, not per thread:
+# autograd runs a CUDA backward, and the forward it recomputes under
+# torch.utils.checkpoint, on a thread of its own.
+_plain_depth = 0
 
 
 def reset_launch_counts() -> None:
@@ -80,13 +90,14 @@ def reset_launch_counts() -> None:
 @contextlib.contextmanager
 def plain_version():
     """Within this context the wrapper runs the plain PyTorch version on
-    CUDA tensors too (for holding the kernel against it on the card)."""
-    prev = getattr(_state, "plain", False)
-    _state.plain = True
+    CUDA tensors too, forward and backward (for holding the kernels against
+    it on the card)."""
+    global _plain_depth
+    _plain_depth += 1
     try:
         yield
     finally:
-        _state.plain = prev
+        _plain_depth -= 1
 
 
 # ---------------------------------------------------------- plain versions
@@ -375,6 +386,42 @@ def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None) -> torc
     return out
 
 
+def _use_plain(q: torch.Tensor) -> bool:
+    return bool(_plain_depth) or q.device.type == "cpu"
+
+
+def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
+    if _use_plain(q):
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    kernel = (flash_attention_wgmma if kernel_variant(q.dtype, q.shape[-1]) == "wgmma"
+              else flash_attention_cuda_core)
+    return kernel(q, k, v, causal=causal, window=window, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel, then the backward
+    kernels (or both plain versions, as ``flash_attention_bwd`` routes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask, ctx.plain = (causal, window, scale), _use_plain(q)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        from repro_torch.kernels import flash_attention_bwd as bwd
+
+        dq, dk, dv = bwd.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+                                             scale=scale, plain=ctx.plain)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -386,12 +433,9 @@ def flash_attention(
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D).  Returns (B, Hq, Sq, D) in
     q's dtype.  CPU tensors take the plain version; CUDA tensors launch the
     kernel ``kernel_variant`` chooses (or the plain version inside
-    ``plain_version()``)."""
+    ``plain_version()``).  With gradients on and an operand that requires
+    one, the result carries the backward kernels' gradient."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu" or getattr(_state, "plain", False):
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    kernel = (flash_attention_wgmma if kernel_variant(q.dtype, q.shape[-1]) == "wgmma"
-              else flash_attention_cuda_core)
-    return kernel(q, k, v, causal=causal, window=window, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)

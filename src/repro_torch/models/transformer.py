@@ -5,17 +5,22 @@ The counterpart of ``repro.models.transformer``.  The layer stack is
 ``n_units`` repeats of the config's pattern (jamba's [mamba x4, attn,
 mamba x3] with MoE every other block, gemma3's [local x5, global], ...);
 parameters are stacked over the unit axis U, and the units run as a Python
-loop over U (the reference's ``lax.scan``, without remat: the port serves
-and does not train yet).  A block is a pre-norm residual of its mixer
-(attention, global or sliding-window local, or a Mamba mixer), then, in an
-encoder-decoder, cross attention over the encoder's output, then its MLP
-(dense or MoE).  Whisper's encoder runs first (``_run_encoder``) over the
+loop over U (the reference's ``lax.scan``).  With ``cfg.remat`` and
+gradients on, each unit (and each encoder unit) runs under
+``torch.utils.checkpoint`` (non-reentrant): its interior is recomputed in
+the backward, so a step holds one unit's activations at a time.  The
+reference's two-level grouping (``_group_size``, ``_unit_stack``) is a
+memory schedule that changes no number and is not copied.  A block is a
+pre-norm residual of its mixer (attention, global or sliding-window local,
+or a Mamba mixer), then, in an encoder-decoder, cross attention over the
+encoder's output, then its MLP (dense or MoE).  Whisper's encoder runs first (``_run_encoder``) over the
 stub frontend's frame embeddings; the vision stub's patch embeddings are
 put before the text; ``rope == "none"`` adds a learned position table.
 
 Entry points
 ------------
 forward(params, cfg, batch)            -> (logits, aux)   full sequence
+loss_fn(params, cfg, batch)            -> (loss, metrics) training
 prefill(params, cfg, batch)            -> (logits_last, cache)
 decode_step(params, cfg, cache, token) -> (logits, cache)  one-token serve
 init_cache(cfg, b, s_max, dtype)       -> cache dict
@@ -27,7 +32,10 @@ and an int8 KV cache with bf16 scales under ``cfg.kv_quant``.  ``params`` is
 the compute copy ``cast_params`` makes once at load; a master tree raises
 ``TypeError`` (the reference casts it on every call, which here would copy
 every weight at every decode step).  The cache's ``t`` is a Python int.
-``loss_fn`` waits for training.
+``loss_fn`` alone takes the master tree: it casts it inside, with gradients
+on, as the reference does at every step, so the gradient reaches the
+float32 masters (and the float32 router and SSM leaves, which the cast
+keeps as they are).
 
 The reference's quirks are kept: ``prefill`` stores the KV cache in
 ``cache_dtype`` even under ``kv_quant`` (only ``decode_step`` quantizes, and
@@ -41,6 +49,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.relation import resolve_device
 from repro_torch.models import moe as _moe
@@ -56,7 +65,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.config import BlockSpec, ModelConfig, SSMConfig
 from repro_torch.models.layers import apply_norm, embed, mlp, unembed
 from repro_torch.models.mamba import MambaState, mamba_decode_step, mamba_mixer
-from repro_torch.models.params import ComputeParams
+from repro_torch.models.params import ComputeParams, cast_params
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -140,13 +149,24 @@ def _run_encoder(params: ComputeParams, cfg: ModelConfig, enc_frames: torch.Tens
     x = enc_frames.to(dtype) + enc["pos_embed"][None].to(dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for u in range(cfg.enc_layers):
-        up = _unit(enc["units"]["block_0"], u)
-        h = apply_norm(x, up["pre_norm"], cfg.norm)
-        t = qkv_project(h, up["attn"], positions, "none", cfg.rope_theta, 0.5, False)
-        x = x + attend_full(t, causal=False, window=None, params=up["attn"])
-        h = apply_norm(x, up["post_norm"], cfg.norm)
-        x = x + mlp(h, up["mlp"], cfg.mlp)
+        x = _remat(cfg, _encoder_unit, x, _unit(enc["units"]["block_0"], u), cfg, positions)
     return apply_norm(x, enc["final_norm"], cfg.norm)
+
+
+def _encoder_unit(x, up: Dict, cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(x, up["pre_norm"], cfg.norm)
+    t = qkv_project(h, up["attn"], positions, "none", cfg.rope_theta, 0.5, False)
+    x = x + attend_full(t, causal=False, window=None, params=up["attn"])
+    h = apply_norm(x, up["post_norm"], cfg.norm)
+    return x + mlp(h, up["mlp"], cfg.mlp)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    holds and gradients are on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _cross_kv(params: ComputeParams, cfg: ModelConfig, enc_out: torch.Tensor):
@@ -181,13 +201,30 @@ def forward(
     [``enc_frames`` (b, se, d)] audio stub; [``patch_embeds`` (b, vis, d)]
     vision stub.  Returns (logits (b, s, V) float32, aux: the MoE aux loss
     summed over blocks, a float32 0 without MoE)."""
-    params = _compute_copy(params)
+    return _forward(_compute_copy(params), cfg, batch, mamba_chunk)
+
+
+def _forward(params: ComputeParams, cfg: ModelConfig, batch: Dict, mamba_chunk: int):
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     enc_kv = _encoder_kv(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(cfg.n_units):
+        kv_u = None if enc_kv is None else (enc_kv[0][u], enc_kv[1][u])
+        x, a = _remat(cfg, _forward_unit, x, _unit(params["units"], u), cfg, positions, kv_u,
+                      mamba_chunk)
+        aux = aux + a
+    return _logits(params, cfg, x), aux
+
+
+def _forward_unit(x, unit: Dict, cfg: ModelConfig, positions: torch.Tensor, enc_kv,
+                  mamba_chunk: int):
+    """One pattern unit over the whole sequence: (x, its blocks' MoE aux
+    loss summed, a float32 0 without MoE)."""
     ssm = _ssm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u, _, blk, bp in _layers(params["units"], cfg):
+    for i, blk in enumerate(cfg.pattern):
+        bp = unit[f"block_{i}"]
         h = apply_norm(x, bp["pre_norm"], cfg.norm)
         if blk.mixer == "attn":
             t = qkv_project(h, bp["attn"], positions, cfg.rope, cfg.rope_theta,
@@ -195,11 +232,39 @@ def forward(
             x = x + attend_full(t, causal=True, window=_window(cfg, blk), params=bp["attn"])
         else:
             x = x + mamba_mixer(h, bp["mamba"], ssm.d_state, ssm.d_conv, mamba_chunk)
-        x = _cross_block(x, bp, cfg, None if enc_kv is None else (enc_kv[0][u], enc_kv[1][u]))
+        x = _cross_block(x, bp, cfg, enc_kv)
         x, a = _mlp_block(x, bp, cfg)
         if a is not None:
             aux = aux + a
-    return _logits(params, cfg, x), aux
+    return x, aux
+
+
+def loss_fn(
+    params: Dict,
+    cfg: ModelConfig,
+    batch: Dict,
+    aux_weight: float = 0.01,
+    mamba_chunk: int = 128,
+) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy over ``batch["labels"]`` (b, s) int32,
+    masked where a label is negative, plus ``aux_weight`` times the MoE aux
+    loss; the vision prefix's logits are dropped.  ``params`` is the master
+    tree (cast here, with gradients on) or a compute copy.  Returns (loss,
+    {"ce", "aux", "tokens"}), float32 scalars, as the reference's
+    ``loss_fn``."""
+    logits, aux = _forward(cast_params(params, cfg), cfg, batch, mamba_chunk)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    ce = nll.sum() / denom
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 # -------------------------------------------------------------------- cache

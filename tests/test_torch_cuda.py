@@ -17,6 +17,8 @@ no JAX, so it runs where JAX is not installed:
 JAX.)  DC comparisons are exact; attention is compared at the reference
 tests' tolerances (float32 ``atol=rtol=2e-5``, bf16 ``atol=3e-2``)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -506,3 +508,90 @@ def test_prefill_on_card_matches_plain_version(card):
     # tolerance); the first layer's cache precedes any attention: equal
     torch.testing.assert_close(logits, want, atol=0.15, rtol=0)
     assert torch.equal(cache["block_0"]["k"][0], want_cache["block_0"]["k"][0])
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,sq,sk,d,causal,window", [
+    (torch.bfloat16, 32, 8, 256, 256, 128, True, None),   # qwen3-4b heads
+    (torch.float32, 32, 8, 256, 256, 128, True, None),
+    (torch.bfloat16, 8, 2, 77, 1000, 64, False, None),    # Sq != Sk, D 64
+    (torch.bfloat16, 8, 2, 300, 300, 128, True, 64),      # window, ragged S
+    (torch.bfloat16, 8, 4, 130, 130, 256, True, None),    # D 256
+    (torch.float32, 4, 2, 40, 40, 16, True, None),        # D 16
+    (torch.float32, 4, 2, 40, 8, 64, True, 4),            # rows that see no key
+    (torch.bfloat16, 4, 2, 100, 8, 128, True, 4),         # the same on the tensor cores
+])
+@pytest.mark.parametrize("variant", ["auto", "cuda_core"])
+def test_flash_backward_kernel_matches_plain_version(card, variant, dtype, hq, hkv, sq, sk, d,
+                                                     causal, window):
+    """The backward kernels against ``flash_attention_bwd_plain`` on the same
+    (q, k, v, o, do), in the variant ``bwd_variant`` picks (tensor cores for
+    bf16 at D 64 and 128) and forced onto the CUDA cores: max |err| within
+    1e-4 (float32) or 2e-2 (bf16) of the largest reference element, one
+    counted launch a call, the same bits every launch."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    q, k, v = _qkv(card, dtype, 2, hq, hkv, sq, sk, d, seed=5)
+    do = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(6),
+                     device=card).to(dtype)
+    kw = dict(causal=causal, window=window)
+    o = tops.flash_attention(q, k, v, **kw)
+    before = fab.LAUNCHES["flash_attention_bwd"]
+    got = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
+    again = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
+    assert fab.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = fab.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a)
+        assert float((g.float() - w.float()).abs().max()) <= rel * float(w.float().abs().max())
+
+
+def test_flash_gradient_through_the_kernels(card):
+    """Autograd through ``flash_attention`` on the (b, s, h, d) views the
+    model passes: one forward and one backward launch, the gradient of the
+    plain version's."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    g = torch.Generator(device=card).manual_seed(2)
+    base = [torch.randn((2, 200, h, 128), generator=g, device=card).to(torch.bfloat16)
+            for h in (16, 4, 4)]
+    do = torch.randn((2, 16, 200, 128), generator=g, device=card).to(torch.bfloat16)
+    grads = {}
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_() for x in base]
+        before = (fa.LAUNCHES["flash_attention_wgmma"], fab.LAUNCHES["flash_attention_bwd"])
+        with fa.plain_version() if plain else contextlib.nullcontext():
+            out = tops.flash_attention(*(x.transpose(1, 2) for x in leaves), causal=True)
+            grads[plain] = torch.autograd.grad(out, leaves, do)
+        launched = (fa.LAUNCHES["flash_attention_wgmma"] - before[0],
+                    fab.LAUNCHES["flash_attention_bwd"] - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+    for a, b in zip(grads[False], grads[True]):
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.float().abs().max())
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Reduced qwen3-4b in float32 compute: two AdamW steps on the card
+    against the CPU (parameters at 2 lr_t, tests/test_torch_train.py's
+    reason), through the CUDA-core forward and the backward kernels."""
+    import dataclasses
+
+    from repro_torch.train import optim as topt
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
+                              compute_dtype="float32").canonicalize(tp=1)
+    master = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt_cfg = topt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 33), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in ("cpu", card):
+        params = topt.tree_map(lambda p: p.to(where, copy=True), master)
+        state = topt.init_opt_state(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        for t in toks.to(where):
+            params, state, m = step(params, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+        out[where] = (float(m["loss"]), float(m["lr"]), topt.tree_items(params))
+    assert out[card][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for (path, a), (_, b) in zip(out["cpu"][2], out[card][2]):
+        torch.testing.assert_close(b.cpu(), a, atol=2 * out["cpu"][1], rtol=1e-5, msg=path)
