@@ -11,9 +11,10 @@ Phases, each of which must pass or the script exits non-zero:
    ``flash_attention_bwd.cu`` and ``semijoin.cu``) with nvcc, one process
    each, at once; log what ``ptxas`` says of registers and spills, and fail
    if any of the DC scan's ten instantiations, the wgmma flash kernel's
-   three (D 64, 128, 256) or the backward's twenty-four (three kernels on
-   the CUDA cores at widths 64, 128 and 256 in float32 and bf16, and on
-   the tensor cores at 64 and 128) spills;
+   three (D 64, 128, 256; the same instances write the logsumexp when asked)
+   or the backward's twenty-four (three kernels on the CUDA cores at widths
+   64, 128 and 256 in float32 and bf16, and three on wgmma at 64 and 128)
+   spills, or ptxas ignored a ``setmaxnreg``;
 3. the DC pair scan against its plain PyTorch version on the card, bit for
    bit, over dtypes, worklists, ragged sizes, partial scopes, NaN and signed
    zeros, then over every case of ``kernels/dc_scan_check.py`` (each
@@ -154,18 +155,23 @@ Phases, each of which must pass or the script exits non-zero:
 19. training: (a) the flash-attention backward kernels
    (``csrc/flash_attention_bwd.cu``, built with the others and checked for
    spills) against ``flash_attention_bwd_plain`` on the card, in the
-   variant ``bwd_variant`` picks (tensor cores for bf16 at D 64 and 128)
-   and, where that is the tensor cores, forced onto the CUDA cores too,
-   float32 at max |err| <= 1e-4 x max |ref| and bf16 at <= 2e-2 x max
-   |ref|, over
-   qwen3-4b's shape (B 2, Hq 32, Hkv 8, S 2,048, D 128, bf16, causal), the
-   same in float32 at S 1,024, D 64 non-causal Sq 77 against Sk 1,000, a
-   window of 64 at ragged S 500, gemma3's D 256 with a window of 1,024 at S
-   1,100, D 16 and rows that see no key (a zero gradient), two launches of
-   each case the same bits; then both variants' times in alternating turns
-   at qwen3-4b's shape beside the plain backward's, SDPA's backward (``scaled_dot_product_attention``
-   with ``enable_gqa``, forward and backward less the forward) and the
-   bound; (b) reduced qwen3-4b, olmoe-1b-7b and falcon-mamba-7b in float32
+   variant ``bwd_variant`` picks (wgmma for bf16 at D 64 and 128, given
+   the wgmma forward's saved logsumexp) and, where that is wgmma, without
+   the logsumexp and forced onto the CUDA cores too, float32 at max |err|
+   <= 1e-4 x max |ref| and bf16 at <= 2e-2 x max |ref|, over qwen3-4b's
+   shape (B 2, Hq 32, Hkv 8, S 2,048, D 128, bf16, causal) on contiguous
+   operands and on the (b, s, h, d) views attend_full passes, the same in
+   float32 at S 1,024, D 64 non-causal Sq 77 against Sk 1,000, a window of
+   64 at ragged S 500 (both on views), gemma3's D 256 with a window of
+   1,024 at S 1,100, D 16 and rows that see no key in float32 and bf16 (a
+   zero gradient), two launches of each case the same bits; the wgmma
+   variant's gradients keep their operands' strides and it allocates no
+   more than its outputs and scratch (no operand copied); then, in
+   alternating turns at qwen3-4b's shape, the wgmma variant on contiguous
+   operands and on views, the CUDA-core variant, the forward kernel with
+   and without its logsumexp, SDPA's forward and its forward and backward
+   (``scaled_dot_product_attention`` with ``enable_gqa``; its backward is
+   the difference) and the plain backward, each beside the bound; (b) reduced qwen3-4b, olmoe-1b-7b and falcon-mamba-7b in float32
    compute: two AdamW steps on the card against the same steps on the CPU
    (loss, grad norm, parameters); (c) the main path ``train``: qwen3-4b at
    its published width cut to 4 of its 36 layers (float32 masters, bf16
@@ -303,19 +309,23 @@ PATH_LAUNCHES = {
               "flash_attention_bwd": TRAIN_UNITS * TRAIN_STEPS},
 }
 # The training phase.  The backward kernels' cases: (label, b, hq, hkv, sq,
-# sk, d, dtype name, causal, window); the first is timed.  Tolerances on
-# max |kernel - plain| / max |plain| per gradient: float32 at 1e-4 (sums in
-# another order), bf16 at 2e-2 (both sides read the same bf16 operands;
-# the tensor-core kernels also round P and dS to bf16 for their products,
-# within 6.6e-3 at worst on an H100).
+# sk, d, dtype name, causal, window, views); with views, q, k, v and do are
+# the (b, s, h, d) views attend_full passes.  The first two are timed.
+# Tolerances on max |kernel - plain| / max |plain| per gradient: float32 at
+# 1e-4 (sums in another order), bf16 at 2e-2 (both sides read the same bf16
+# operands; the tensor-core kernels also round P and dS to bf16 for their
+# products, within 6.6e-3 at worst on an H100; PERF.md).
 FLASH_BWD_CASES = (
-    ("qwen3-4b", 2, 32, 8, 2048, 2048, 128, "bfloat16", True, None),
-    ("qwen3-4b float32 S 1,024", 2, 32, 8, 1024, 1024, 128, "float32", True, None),
-    ("D 64 non-causal Sq 77 Sk 1,000", 2, 8, 2, 77, 1000, 64, "bfloat16", False, None),
-    ("window 64 ragged S 500", 2, 8, 2, 500, 500, 128, "bfloat16", True, 64),
-    ("gemma3 D 256 window 1,024 S 1,100", 1, 16, 8, 1100, 1100, 256, "bfloat16", True, 1024),
-    ("D 16", 2, 4, 2, 96, 96, 16, "float32", True, None),
-    ("rows that see no key", 1, 4, 2, 40, 8, 64, "float32", True, 4),
+    ("qwen3-4b", 2, 32, 8, 2048, 2048, 128, "bfloat16", True, None, False),
+    ("qwen3-4b (b, s, h, d) views", 2, 32, 8, 2048, 2048, 128, "bfloat16", True, None, True),
+    ("qwen3-4b float32 S 1,024", 2, 32, 8, 1024, 1024, 128, "float32", True, None, False),
+    ("D 64 non-causal Sq 77 Sk 1,000", 2, 8, 2, 77, 1000, 64, "bfloat16", False, None, True),
+    ("window 64 ragged S 500", 2, 8, 2, 500, 500, 128, "bfloat16", True, 64, True),
+    ("gemma3 D 256 window 1,024 S 1,100", 1, 16, 8, 1100, 1100, 256, "bfloat16", True, 1024,
+     False),
+    ("D 16", 2, 4, 2, 96, 96, 16, "float32", True, None, False),
+    ("rows that see no key", 1, 4, 2, 40, 8, 64, "float32", True, 4, False),
+    ("rows that see no key bf16", 1, 4, 2, 100, 8, 128, "bfloat16", True, 4, False),
 )
 FLASH_BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the reduced configs trained on the card against the CPU (float32 compute)
@@ -2757,12 +2767,24 @@ def flash_bwd_bound(q, k, causal, window):
     return t_bytes, "bytes", detail, flops
 
 
+def requested_bytes() -> int:
+    """Bytes requested of PyTorch's CUDA allocator so far, exactly as asked
+    (not rounded to its blocks)."""
+    import torch
+
+    return torch.cuda.memory_stats()["requested_bytes.all.allocated"]
+
+
 def flash_bwd_phase(dev):
     """(a): the backward kernels against the plain backward on every case
-    of ``FLASH_BWD_CASES``, in the variant ``bwd_variant`` picks and forced
-    onto the CUDA cores, two launches the same bits; then both variants'
-    times in alternating turns at qwen3-4b's shape beside the plain
-    backward, SDPA's backward and the bound."""
+    of ``FLASH_BWD_CASES``, in the variant ``bwd_variant`` picks (where that
+    is wgmma: given the forward's saved logsumexp, then without it, then
+    forced onto the CUDA cores), two launches the same bits; the wgmma
+    variant writes each gradient in its operand's layout and requests no
+    memory but its outputs and scratch (no copy of an operand).  Then, in
+    alternating turns at qwen3-4b's shape: both variants, the wgmma one on
+    the views too, the forward with and without its logsumexp, the plain
+    backward, beside SDPA's backward and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2772,27 +2794,46 @@ def flash_bwd_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     worst = {}
     max_err = 0.0
-    timed = None
-    for label, b, hq, hkv, sq, sk, d, dt, causal, window in FLASH_BWD_CASES:
+    timed = {}
+    for label, b, hq, hkv, sq, sk, d, dt, causal, window, views in FLASH_BWD_CASES:
         dtype = getattr(torch, dt)
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                       for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
-                                     (b, hq, sq, d)))
+        shapes = ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d))
+        if views:  # (b, s, h, d) tensors seen as (b, h, s, d)
+            q, k, v, do = (torch.randn((n, s_, h, d_), generator=gen, device=dev)
+                           .to(dtype).transpose(1, 2) for n, h, s_, d_ in shapes)
+        else:
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                           for shape in shapes)
         kw = dict(causal=causal, window=window)
-        o = fa.flash_attention(q, k, v, **kw)  # the forward kernel's output
-        want = fab.flash_attention_bwd_plain(q, k, v, o, do, **kw)
         chosen = fab.bwd_variant(dtype, d)
-        for variant in ("auto", "cuda_core") if chosen == "mma" else ("auto",):
-            name = chosen if variant == "auto" else variant
-            before = fab.LAUNCHES["flash_attention_bwd"]
-            got = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
-            again = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant=variant, **kw)
+        if chosen == "wgmma":  # the forward kernel's output and saved logsumexp
+            o, lse = fa.flash_attention_wgmma(q, k, v, with_lse=True, **kw)
+            variants = (("wgmma", lse), ("wgmma without lse", None), ("cuda_core", None))
+        else:
+            o, lse = fa.flash_attention(q, k, v, **kw), None
+            variants = (("cuda_core", None),)
+        want = fab.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        for name, given in variants:
+            variant = "cuda_core" if name == "cuda_core" else "auto"
+            before, base = fab.LAUNCHES["flash_attention_bwd"], requested_bytes()
+            got = fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=given, variant=variant, **kw)
+            grown = requested_bytes() - base
+            again = fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=given, variant=variant, **kw)
             torch.cuda.synchronize()
             if fab.LAUNCHES["flash_attention_bwd"] != before + 2:
                 fail(f"flash backward {label} ({name}): "
                      f"{fab.LAUNCHES['flash_attention_bwd'] - before} launches for 2 calls")
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 fail(f"flash backward {label} ({name}): two launches differ")
+            if name == "wgmma":
+                if [g.stride() for g in got] != [x.stride() for x in (q, k, v)]:
+                    fail(f"flash backward {label}: gradient strides "
+                         f"{[g.stride() for g in got]}, operands' {[x.stride() for x in (q, k, v)]}")
+                sq_pad = -(-sq // fab.SQ_ALIGN) * fab.SQ_ALIGN  # lse2 and Delta
+                allowed = sum(g.numel() * 2 for g in got) + 2 * b * hq * sq_pad * 4
+                if grown != allowed:
+                    fail(f"flash backward {label}: {grown} bytes requested, its outputs and "
+                         f"scratch take {allowed}: an operand was copied")
             rels = []
             for grad, g, w in zip(("dq", "dk", "dv"), got, want):
                 if g.dtype != dtype or g.shape != w.shape:
@@ -2800,56 +2841,92 @@ def flash_bwd_phase(dev):
                 e = max_abs_err(g, w)
                 ref = float(w.float().abs().max())
                 rels.append(e / ref if ref > 0 else e)
-                if variant == "auto":
+                if name == chosen:
                     max_err = max(max_err, e)
             if max(rels) > FLASH_BWD_REL_TOL[dt]:
                 fail(f"flash backward {label} ({name}): max |err| / max |ref| (dq, dk, dv) "
                      f"{rels} above {FLASH_BWD_REL_TOL[dt]}")
-            if label == "rows that see no key":
+            if label.startswith("rows that see no key"):
                 blind = torch.arange(sq, device=dev) - window + 1 >= sk
                 if not blind.any() or (got[0][:, :, blind] != 0).any():
-                    fail("flash backward: a row that sees no key has a gradient")
-            key = f"{dt} {name}"
+                    fail(f"flash backward ({name}): a row that sees no key has a gradient")
+            key = f"{dt} {name.split()[0]}"
             worst[key] = max(worst.get(key, 0.0), max(rels))
             log(f"flash backward == plain: {label} ({dt}, {name}): max |err| / max |ref| (dq, "
-                f"dk, dv) {[f'{r:.3e}' for r in rels]}, two launches the same bits")
-        if timed is None:
-            timed = (label, q, k, v, o, do, kw)
-        del q, k, v, o, do, got, again, want
+                f"dk, dv) {[f'{r:.3e}' for r in rels]}, two launches the same bits"
+                + (f", {grown} bytes requested (outputs and scratch)" if name == "wgmma" else ""))
+        if label.startswith("qwen3-4b") and dt == "bfloat16":
+            timed[views] = (q, k, v, o, do, lse)
+        del q, k, v, o, do, lse, got, again, want
     log(f"flash backward: worst max |err| / max |ref| {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
         f"(tolerances {FLASH_BWD_REL_TOL})")
 
-    label, q, k, v, o, do, kw = timed
-    turns = {"auto": [], "cuda_core": []}
-    for variant in ("auto", "cuda_core", "cuda_core", "auto"):
-        turns[variant].append(cuda_ms(lambda: fab.flash_attention_bwd_cuda(
-            q, k, v, o, do, variant=variant, **kw), 10))
-    ms, core_ms = (sum(turns[v]) / 2 for v in ("auto", "cuda_core"))
-    plain_ms = cuda_ms(lambda: fab.flash_attention_bwd_plain(q, k, v, o, do, **kw), 3)
+    (q, k, v, o, do, lse), (qv, kv_, vv, ov, dov, lsev) = timed[False], timed[True]
+    kw = dict(causal=True, window=None)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=kw["causal"],
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
 
-    sdpa_fwd_ms = cuda_ms(sdpa, 10)
-    sdpa_both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), 10)
-    library_ms = sdpa_both_ms - sdpa_fwd_ms
-    bound_ms, bound_by, detail, flops = flash_bwd_bound(q, k, kw["causal"], kw["window"])
-    log(f"flash backward {label} B{q.shape[0]} Hq{q.shape[1]} Hkv{k.shape[1]} S{q.shape[2]} "
-        f"D{q.shape[3]} {q.dtype}: tensor-core kernels {ms:.4f} ms (turns "
-        f"{[round(t, 4) for t in turns['auto']]}; {flops / ms / 1e9:.1f} TFLOP/s of the bound's "
-        f"flops), CUDA-core kernels {core_ms:.4f} ms (turns "
-        f"{[round(t, 4) for t in turns['cuda_core']]}), plain {plain_ms:.3f} ms, sdpa backward "
-        f"{library_ms:.4f} ms (forward and backward {sdpa_both_ms:.4f}, forward "
-        f"{sdpa_fwd_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; {detail}); / sdpa "
-        f"{ms / library_ms:.2f}, / bound {ms / bound_ms:.2f} on {card_line()}")
-    del q, k, v, o, do, qg, kg, vg
+    fns = {
+        "wgmma": (lambda: fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw), 10),
+        "wgmma views": (lambda: fab.flash_attention_bwd_cuda(qv, kv_, vv, ov, dov, lse=lsev,
+                                                             **kw), 10),
+        "cuda_core": (lambda: fab.flash_attention_bwd_cuda(q, k, v, o, do, variant="cuda_core",
+                                                           **kw), 3),
+        "forward with lse": (lambda: fa.flash_attention_wgmma(q, k, v, with_lse=True, **kw), 10),
+        "forward": (lambda: fa.flash_attention_wgmma(q, k, v, **kw), 10),
+        "sdpa forward": (sdpa, 10),
+        "sdpa forward and backward": (lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do), 10),
+        "plain": (lambda: fab.flash_attention_bwd_plain(q, k, v, o, do, **kw), 2),
+    }
+    turns = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        fn, reps = fns[name]
+        turns[name].append(cuda_ms(fn, reps))
+    t = {name: sum(v) / len(v) for name, v in turns.items()}
+    # the wgmma variant's three kernels by torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+        torch.cuda.synchronize()
+    split = {name: named_device_us(prof, name)[0] / 5 / 1e3
+             for name in ("bwd_prep_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma")}
+    if not any(split.values()):  # the window recorded no kernel of these names
+        split = None
+    log(f"flash backward wgmma kernels at qwen3-4b's shape (torch.profiler, 5 calls): "
+        f"{'not measured' if split is None else {k_: round(v_, 4) for k_, v_ in split.items()}}"
+        f" ms a call; top {device_top(prof, 4)}")
+    library_ms = t["sdpa forward and backward"] - t["sdpa forward"]
+    bound_ms, bound_by, detail, flops = flash_bwd_bound(q, k, True, None)
+    fwd_bound_ms = attention_bound(q, k, True, None)[0]
+    card = card_line()
+    for name in ("wgmma", "wgmma views", "cuda_core", "plain"):
+        log(f"flash backward {name} at qwen3-4b's shape (B 2, Hq 32, Hkv 8, S 2048, D 128, bf16, "
+            f"causal): {t[name]:.4f} ms (turns {[round(x, 4) for x in turns[name]]}), / bound "
+            f"{t[name] / bound_ms:.2f}, / sdpa backward {t[name] / library_ms:.2f}; "
+            f"{flops / t[name] / 1e9:.1f} TFLOP/s of the bound's flops on {card}")
+    for name in ("forward with lse", "forward"):
+        log(f"flash {name} at the same shape: {t[name]:.4f} ms (turns "
+            f"{[round(x, 4) for x in turns[name]]}), / bound {t[name] / fwd_bound_ms:.2f}, / sdpa "
+            f"forward {t[name] / t['sdpa forward']:.2f} on {card}")
+    log(f"flash backward bound {bound_ms:.4f} ms ({bound_by}; {detail}); sdpa backward "
+        f"{library_ms:.4f} ms (forward and backward {t['sdpa forward and backward']:.4f}, forward "
+        f"{t['sdpa forward']:.4f}); forward with lse / without {t['forward with lse'] / t['forward']:.4f}")
+    del q, k, v, o, do, lse, qv, kv_, vv, ov, dov, lsev, qg, kg, vg, timed
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, ms=ms, turns_ms=turns["auto"], cuda_core_ms=core_ms,
-                cuda_core_turns_ms=turns["cuda_core"], plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, sdpa_fwd_bwd_ms=sdpa_both_ms,
-                sdpa_fwd_ms=sdpa_fwd_ms, worst_rel_err=worst)
+    return dict(max_abs_err=max_err, ms=t["wgmma"], turns_ms=turns["wgmma"],
+                views_ms=t["wgmma views"], cuda_core_ms=t["cuda_core"],
+                cuda_core_turns_ms=turns["cuda_core"], plain_ms=t["plain"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                sdpa_fwd_bwd_ms=t["sdpa forward and backward"], sdpa_fwd_ms=t["sdpa forward"],
+                forward_lse_ms=t["forward with lse"], forward_ms=t["forward"],
+                forward_lse_turns_ms=turns["forward with lse"], forward_turns_ms=turns["forward"],
+                kernels_ms=split, worst_rel_err=worst)
 
 
 def train_reduced_phase(dev):
@@ -3113,14 +3190,21 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
     # every instantiation of the DC scan kernel, of the wgmma flash kernel
-    # and of the backward's three kernels (3 widths x 2 dtypes on the CUDA
-    # cores, 2 widths on the tensor cores), without a spill
+    # (its lse a runtime argument) and of the backward's three kernels (3
+    # widths x 2 dtypes on the CUDA cores, 2 widths on wgmma), without a
+    # spill, and every setmaxnreg honoured
     for name, n_inst in (("dc_pairs", 10), ("flash_attention_wgmma", 3),
                          ("flash_attention_bwd", 24)):
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                            build.BUILD_LOG[name]["ptxas"])
+        ptxas = build.BUILD_LOG[name]["ptxas"]
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)
         if len(spills) < n_inst or any(int(a) or int(b) for a, b in spills):
             fail(f"{name}.cu: {len(spills)} instantiations, spills {spills}")
+        if "setmaxnreg ignored" in ptxas:
+            fail(f"{name}.cu: ptxas ignored a setmaxnreg")
+    entries = re.findall(r"Compiling entry function '(\w+)'", build.BUILD_LOG["flash_attention_bwd"]["ptxas"])
+    for kernel in ("bwd_prep_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma"):
+        if sum(kernel in e for e in entries) != 2:
+            fail(f"flash_attention_bwd.cu: {kernel} not built at D 64 and 128 ({entries})")
 
     dc_measured = kernel_phase(dev)
     role_measured = role_scan_phase(dev)

@@ -7,63 +7,88 @@
 // (ref.attention / ref.attention_blocked) by autodiff, and the port's training
 // path needs the same gradient on the card without a plain version on it.
 //
-// Operands are contiguous (B, H, S, D): q, o, dout, dq are (B, Hq, Sq, D);
-// k, v, dk, dv are (B, Hkv, Sk, D); query head h reads kv head h / (Hq / Hkv).
-// The mask is the forward's: key kpos is visible to query qpos when kpos < Sk,
-// (causal) kpos <= qpos and (window) kpos > qpos - window.  With
-// P = softmax(scale * Q K^T) over the visible keys and dO the output's
-// gradient, the gradient is
+// q, o, dout, dq are (B, Hq, Sq, D); k, v, dk, dv are (B, Hkv, Sk, D); query
+// head h reads kv head h / (Hq / Hkv).  The mask is the forward's: key kpos
+// is visible to query qpos when kpos < Sk, (causal) kpos <= qpos and (window)
+// kpos > qpos - window.  With P = softmax(scale * Q K^T) over the visible keys
+// and dO the output's gradient, the gradient is
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),  Delta = rowsum(dO o O),
 //   dQ = scale * dS K,  dK = scale * dS^T Q,
 // summed over the GQA group's query heads for dK and dV.  A row that sees no
 // key has P = 0 and gets a zero gradient (ref.attention's row_visible guard).
-//
-// Three kernels, each recomputing what it needs from the operands, with
-// float32 sums:
-//   (a) bwd_prep_*: per query row, the logsumexp of its visible scores
-//       (an online max and sum over the kv tiles, as the forward runs it) and
-//       Delta, into float32 scratch (B, Hq, Sq);
-//   (b) bwd_dkdv_*: one block per (batch, kv head, tile of keys).  It
-//       loops over the group's query heads and the query tiles that see the
-//       tile, recomputes P^T = exp(scale * K Q^T - lse) and dP^T = V dO^T, and
-//       accumulates dV += P^T dO and dK += dS^T Q in registers.  The group sum
-//       happens inside the block, so no atomics are needed;
-//   (c) bwd_dq_*: one block per (batch, query head, tile of query rows),
-//       looping over the kv tiles that the mask leaves, dQ += dS K.
 // Every output element is written once, by one thread, after a fixed-order
-// sum: the gradient is the same bits launch after launch.
+// sum, and no kernel uses atomics: the gradient is the same bits launch after
+// launch.
 //
 // What bounds it on this card: operations.  The gradient needs five products
 // of 2 * (visible pairs) * D flops (the forward's Q K^T recomputed, dO V^T,
-// P^T dO, dS K, dS^T Q); on the tensor cores in bf16 that is the bound.  The
-// design recomputes more than that (eight products in all: Q K^T in each of
-// the three kernels, dO V^T in two) so that no score matrix is written to
-// device memory, and comes in two variants, chosen per call
-// (kernels/flash_attention_bwd.py::bwd_variant):
-//   * bf16 at head dims 64 and 128 (qwen3-4b, olmoe, whisper): every product
-//     on the tensor cores with mma.sync m16n8k16 (bf16 in, float32 sums).
-//     A block is 4 warps, each owning 16 rows of the block's 64-row tile and
-//     looping over 32-row tiles of the other operand; operands stay bf16 in
-//     shared memory (rows padded by 8 elements against ldmatrix bank
-//     conflicts), and P^T, dS^T and dS pass from the score accumulators to
-//     the next product as A fragments in registers, rounded to bf16 (as
-//     FlashAttention-2 does).  dK/dV's two 16 x D accumulators take 128
-//     registers a thread at D 128 (240 in all, no spill);
-//   * float32, and bf16 at other head dims (gemma3's 256): float32 FMAs on
-//     the CUDA cores, in the forward CUDA-core kernel's layout: 128 threads
-//     as 16 row groups x 8 lanes, each holding R rows x 4 columns of a score
-//     tile and R rows x D/8 columns of its accumulators, tiles of 32 on the
-//     inner loop, shared-memory rows padded by 4 floats.  Head dims up to
-//     256 (a multiple of 8) run in three compiled widths (64, 128, 256), a
-//     narrower D zero-padded in shared memory.  R is 256 / width in (a) and
-//     (b), so a thread's dK and dV accumulators are 64 floats; in (c) R is 2
-//     (1 at width 256).
-// FAB_CUDA_CORE forces the second variant (for timing the two on one
-// input).  expf, not __expf, in both.
+// P^T dO, dS K, dS^T Q); on the tensor cores in bf16 that is the bound.  Two
+// variants, chosen per call (kernels/flash_attention_bwd.py::bwd_variant):
+//
+// * bf16 at head dims 64 and 128 (qwen3-4b, olmoe, whisper), on wgmma and
+//   TMA (fa_bwd_wgmma_launch), FlashAttention-3's design.  It reads the
+//   logsumexp that the wgmma forward saved (natural log, +inf for a row that
+//   sees no key), so no kernel recomputes the softmax's statistics, and
+//   makes seven products: Q K^T and dO V^T in each of the two main kernels,
+//   and the three gradients.  Operands are described to TMA with the
+//   caller's strides, as the forward's are, and dq, dk and dv are written
+//   with their own strides: the (B, S, H, D) views attend_full passes are
+//   read and written where they lie.  Three kernels:
+//     (a) bwd_prep_wgmma: Delta a row, and lse in base 2 (lse * log2 e),
+//         into float32 scratch (B, Hq, SqP), SqP = Sq rounded up to 128,
+//         rows past Sq at Delta 0 and lse +inf (their P is then exactly 0);
+//     (b) bwd_dkdv_wgmma: one CTA per (batch * kv head, 128 keys), the
+//         tiles with the most causal work first; two consumer warpgroups own
+//         64 keys each and a producer warpgroup, one thread of which starts
+//         every load, hands them its registers (setmaxnreg 240 / 24).  K and
+//         V arrive once; then, for each query head of the GQA group and each
+//         64-row query tile that sees the keys, Q, dO, lse and Delta arrive
+//         by TMA into a ring of two stages with full and empty mbarriers.
+//         S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 from shared
+//         memory into float32 registers; P^T = exp2(S^T scale log2 e - lse)
+//         and dS^T = P^T o (dP^T - Delta) are formed in those registers and
+//         packed as bf16 into the A fragments of dV += P^T dO and
+//         dK += dS^T Q, which read Q and dO from shared memory as MN-major
+//         B operands (m64nDk16).  P and dS never leave the registers; both
+//         are formed in one pass after both score products, which keeps a
+//         consumer thread within its 240 registers.  The group sum stays
+//         in the block's accumulators;
+//     (c) bwd_dq_wgmma: one CTA per (batch * q head, 128 query rows), the
+//         tiles with the most causal work first; Q and dO arrive once, K and
+//         V tiles of 128 keys through the ring; S = Q K^T and dP = dO V^T
+//         (m64n128k16) and dQ += dS K (K as an MN-major B operand).  128
+//         keys a tile rather than 64: half the tiles, and S and dP as
+//         m64n128 products, which read less shared memory a flop
+//         (tools/flash_bwd_candidates.py times the two; PERF.md).
+//   In both, the loop runs only over the tiles the mask leaves, a
+//   warpgroup skips a tile whose keys are all masked for it, and masking is
+//   per element only in tiles that cross a causal or window limit (or the
+//   end of the keys, in (c)); TMA fills rows past Sq and Sk with zeros.
+//   P and dS are rounded to bf16 for their products, as FlashAttention does.
+//
+// * float32, and bf16 at other head dims (gemma3's 256), or any call with
+//   variant "cuda_core" (flash_attention_bwd_launch): float32 FMAs on the
+//   CUDA cores, on contiguous operands, each kernel recomputing what it
+//   needs (eight products in all):
+//     (a) bwd_prep_kernel: per query row, the logsumexp of its visible scores
+//         (an online max and sum over the kv tiles, as the forward runs it)
+//         and Delta, into float32 scratch (B, Hq, Sq);
+//     (b) bwd_dkdv_kernel: one block per (batch, kv head, tile of keys).  It
+//         loops over the group's query heads and the query tiles that see the
+//         tile, recomputes P^T = exp(scale * K Q^T - lse) and dP^T = V dO^T,
+//         and accumulates dV += P^T dO and dK += dS^T Q in registers;
+//     (c) bwd_dq_kernel: one block per (batch, query head, tile of query
+//         rows), looping over the kv tiles that the mask leaves, dQ += dS K.
+//   The forward CUDA-core kernel's layout: 128 threads as 16 row groups x 8
+//   lanes, each holding R rows x 4 columns of a score tile and R rows x D/8
+//   columns of its accumulators, tiles of 32 on the inner loop,
+//   shared-memory rows padded by 4 floats.  Head dims up to 256 (a multiple
+//   of 8) run in three compiled widths (64, 128, 256), a narrower D
+//   zero-padded in shared memory.  R is 256 / width in (a) and (b), so a
+//   thread's dK and dV accumulators are 64 floats; in (c) R is 2 (1 at width
+//   256).  expf, not __expf.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_wgmma.cuh"
 
 #define FAB_MAX_HEAD_DIM 256
 #define FAB_NEG_INF -1e30f
@@ -72,10 +97,7 @@
 #define FAB_F32 0
 #define FAB_BF16 1
 
-// variant codes (kernels/flash_attention_bwd.py::VARIANT_CODE)
-#define FAB_AUTO 0
-#define FAB_CUDA_CORE 1
-
+// the CUDA-core variant: contiguous (B, H, S, D) operands
 struct FaBwdArgs {
   const void* q;
   const void* k;
@@ -92,7 +114,36 @@ struct FaBwdArgs {
   int32_t has_window;
   int32_t window;
   int32_t dtype;
-  int32_t variant;  // FAB_AUTO: tensor cores where they apply; FAB_CUDA_CORE
+  float scale;
+};
+
+// the wgmma variant: bf16 operands with (batch, head, seq) strides in
+// elements, the head dim contiguous
+struct FaBwdWgArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  void* dq;
+  void* dk;
+  void* dv;
+  int64_t q_stride[3];
+  int64_t k_stride[3];
+  int64_t v_stride[3];
+  int64_t o_stride[3];
+  int64_t dout_stride[3];
+  int64_t dq_stride[3];
+  int64_t dk_stride[3];
+  int64_t dv_stride[3];
+  const float* lse;  // (B, Hq, Sq): the forward's, natural log
+  float* lse2;       // (B, Hq, sq_pad) scratch
+  float* delta;      // (B, Hq, sq_pad) scratch
+  int32_t b, hq, hkv, sq, sk, d;
+  int32_t sq_pad;  // Sq rounded up to 128
+  int32_t causal;
+  int32_t has_window;
+  int32_t window;
   float scale;
 };
 
@@ -521,335 +572,6 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const FaBwdArgs a) {
   store_rows<DMAX>(static_cast<T*>(a.dq) + qoff, q0, a.sq, a.d, rg, cg, acc, a.scale);
 }
 
-
-// ============================================================ tensor cores
-// (a), (b) and (c) for bf16 at head dims 64 and 128 on mma.sync (the header's
-// first variant).  Fragments come by ldmatrix, .trans where a product reads
-// a tile along its rows; a staged row is D + 8 elements, so the 8 row
-// addresses of an ldmatrix fall in 8 different bank groups.
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int MT = 64;  // rows of a block's own tile: 4 warps x 16
-constexpr int IT = 32;  // rows of the tile a block loops over
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [row0, row0 + nrows) of one head ((D) bf16 a row in device
-// memory) into shared memory with row stride D + 8; rows past nvalid are zero.
-template <int D>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int row0, int nrows,
-                                           int nvalid) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < nrows * CH; idx += NT) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nvalid) v = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = v;
-  }
-}
-
-template <int N8>
-__device__ __forceinline__ void zero(float (&c)[N8][4]) {
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-}
-
-// c[16 x 8 N8] += A[a_row0 .. + 16][0 .. D) * B[b_row0 .. + 8 N8][0 .. D)^T, both
-// tiles row-major in shared memory with row stride D + 8
-template <int D, int N8>
-__device__ __forceinline__ void mm_abt(float (&c)[N8][4], const bf16* sA, int a_row0,
-                                       const bf16* sB, int b_row0, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    uint32_t a[4];
-    ldsm_x4(a, sA + (a_row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < N8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, sB + (b_row0 + n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
-                     ((lane >> 3) & 1) * 8);
-      mma16816(c[n], a, b[0], b[1]);
-      mma16816(c[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// c[16 x D] += P[16 x 16 K16] * B[b_row0 .. + 16 K16][0 .. D): P as A fragments
-// in registers, B row-major in shared memory (row stride D + 8)
-template <int D, int K16>
-__device__ __forceinline__ void mm_pb(float (&c)[D / 8][4], const uint32_t (&p)[K16][4],
-                                      const bf16* sB, int b_row0, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < K16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, sB + (b_row0 + kk * 16 + (lane & 15)) * LD + n * 8 + (lane >> 4) * 8);
-      mma16816(c[n], p[kk], b[0], b[1]);
-      mma16816(c[n + 1], p[kk], b[2], b[3]);
-    }
-  }
-}
-
-// accumulators of a 16 x 16 K16 tile -> A fragments, rounded to bf16
-template <int K16>
-__device__ __forceinline__ void to_a(uint32_t (&a)[K16][4], const float (&c)[2 * K16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K16; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// rows row0 + g and row0 + g + 8 of a 16 x D accumulator, times mul, as bf16
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* base, int row0, int nvalid,
-                                          const float (&c)[D / 8][4], float mul, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
-    if (row >= nvalid) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(base + (int64_t)row * D + n * 8 + 2 * t) =
-          pack_bf16(c[n][2 * half] * mul, c[n][2 * half + 1] * mul);
-  }
-}
-
-// (a) on the tensor cores: each warp's 16 query rows, kv tiles of MT keys
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_prep_mma(const FaBwdArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sK = sQ + MT * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int bk = (bh / a.hq) * a.hkv + (bh % a.hq) / (a.hq / a.hkv);
-  const int q0 = blockIdx.x * MT;
-  const bf16* kp = static_cast<const bf16*>(a.k) + (int64_t)bk * a.sk * D;
-
-  row_delta<bf16, MT / 16>(a, bh, q0);
-  stage_bf16<D>(sQ, static_cast<const bf16*>(a.q) + (int64_t)bh * a.sq * D, q0, MT, a.sq);
-  int kt_begin, kt_end;
-  kv_tiles<MT>(a, q0, min(q0 + MT, a.sq) - 1, kt_begin, kt_end);
-
-  float m[2] = {FAB_NEG_INF, FAB_NEG_INF}, l[2] = {0.f, 0.f};
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * MT;
-    __syncthreads();  // the previous tile's K is no longer read
-    stage_bf16<D>(sK, kp, k0, MT, a.sk);
-    __syncthreads();
-    float s[MT / 8][4];
-    zero(s);
-    mm_abt<D, MT / 8>(s, sQ, warp * 16, sK, 0, lane);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qpos = q0 + warp * 16 + g + 8 * half;
-      float rmax = FAB_NEG_INF;
-#pragma unroll
-      for (int n = 0; n < MT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * half + e];
-          x = visible(a, qpos, k0 + n * 8 + 2 * t + e) ? x * a.scale : FAB_NEG_INF;
-          rmax = fmaxf(rmax, x);
-        }
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      const float m_new = fmaxf(m[half], rmax);
-      float rsum = 0.f;
-#pragma unroll
-      for (int n = 0; n < MT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = s[n][2 * half + e];
-          rsum += x > 0.5f * FAB_NEG_INF ? expf(x - m_new) : 0.f;
-        }
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
-      l[half] = l[half] * expf(m[half] - m_new) + rsum;
-      m[half] = m_new;
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + g + 8 * half;
-    if (t == 0 && row < a.sq)
-      a.lse[(int64_t)bh * a.sq + row] = l[half] > 0.f ? m[half] + logf(l[half]) : 0.f;
-  }
-}
-
-// (b) on the tensor cores: each warp's 16 keys of the block's MT, query
-// tiles of IT rows; dV += P^T dO and dK += dS^T Q
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_dkdv_mma(const FaBwdArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sV = sK + MT * LD;
-  bf16* sQ = sV + MT * LD;
-  bf16* sG = sQ + IT * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sG + IT * LD);
-  float* sD = sL + IT;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bk = blockIdx.y;
-  const int bi = bk / a.hkv, hk = bk % a.hkv;
-  const int group = a.hq / a.hkv;
-  const int k0 = blockIdx.x * MT;
-  const int64_t koff = (int64_t)bk * a.sk * D;
-
-  stage_bf16<D>(sK, static_cast<const bf16*>(a.k) + koff, k0, MT, a.sk);
-  stage_bf16<D>(sV, static_cast<const bf16*>(a.v) + koff, k0, MT, a.sk);
-  int qt_begin, qt_end;
-  q_tiles<IT>(a, k0, min(k0 + MT, a.sk) - 1, qt_begin, qt_end);
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  for (int hg = 0; hg < group; ++hg) {
-    const int bh = bi * a.hq + hk * group + hg;
-    const int64_t qoff = (int64_t)bh * a.sq * D;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * IT;
-      __syncthreads();  // the previous tile's Q, dO, lse and Delta are no longer read
-      stage_bf16<D>(sQ, static_cast<const bf16*>(a.q) + qoff, q0, IT, a.sq);
-      stage_bf16<D>(sG, static_cast<const bf16*>(a.dout) + qoff, q0, IT, a.sq);
-      for (int i = threadIdx.x; i < IT; i += NT) {
-        const bool in = q0 + i < a.sq;
-        sL[i] = in ? a.lse[(int64_t)bh * a.sq + q0 + i] : 0.f;
-        sD[i] = in ? a.delta[(int64_t)bh * a.sq + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      float s[IT / 8][4], dp[IT / 8][4];
-      zero(s);
-      zero(dp);
-      mm_abt<D, IT / 8>(s, sK, warp * 16, sQ, 0, lane);   // (K Q^T)[key][query]
-      mm_abt<D, IT / 8>(dp, sV, warp * 16, sG, 0, lane);  // (V dO^T)[key][query]
-#pragma unroll
-      for (int n = 0; n < IT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t + (e & 1);
-          const int kpos = k0 + warp * 16 + g + 8 * (e >> 1);
-          const float p = visible(a, q0 + qc, kpos) ? expf(s[n][e] * a.scale - sL[qc]) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - sD[qc]);
-        }
-      uint32_t pa[IT / 16][4], sa[IT / 16][4];
-      to_a<IT / 16>(pa, s);
-      to_a<IT / 16>(sa, dp);
-      mm_pb<D, IT / 16>(dv, pa, sG, 0, lane);  // dV += P^T dO
-      mm_pb<D, IT / 16>(dk, sa, sQ, 0, lane);  // dK += dS^T Q
-    }
-  }
-  store_acc<D>(static_cast<bf16*>(a.dv) + koff, k0 + warp * 16, a.sk, dv, 1.f, lane);
-  store_acc<D>(static_cast<bf16*>(a.dk) + koff, k0 + warp * 16, a.sk, dk, a.scale, lane);
-}
-
-// (c) on the tensor cores: each warp's 16 query rows of the block's MT, kv
-// tiles of IT keys; dQ += dS K
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_dq_mma(const FaBwdArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sG = sQ + MT * LD;  // dO
-  bf16* sK = sG + MT * LD;
-  bf16* sV = sK + IT * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_qt = (a.sq + MT - 1) / MT;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * MT;  // most causal work first
-  const int bh = blockIdx.y;
-  const int bk = (bh / a.hq) * a.hkv + (bh % a.hq) / (a.hq / a.hkv);
-  const int64_t qoff = (int64_t)bh * a.sq * D;
-  const int64_t koff = (int64_t)bk * a.sk * D;
-
-  stage_bf16<D>(sQ, static_cast<const bf16*>(a.q) + qoff, q0, MT, a.sq);
-  stage_bf16<D>(sG, static_cast<const bf16*>(a.dout) + qoff, q0, MT, a.sq);
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + warp * 16 + g + 8 * half;
-    lse[half] = row < a.sq ? a.lse[(int64_t)bh * a.sq + row] : 0.f;
-    dlt[half] = row < a.sq ? a.delta[(int64_t)bh * a.sq + row] : 0.f;
-  }
-  int kt_begin, kt_end;
-  kv_tiles<IT>(a, q0, min(q0 + MT, a.sq) - 1, kt_begin, kt_end);
-
-  float dq[D / 8][4];
-  zero(dq);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * IT;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    stage_bf16<D>(sK, static_cast<const bf16*>(a.k) + koff, k0, IT, a.sk);
-    stage_bf16<D>(sV, static_cast<const bf16*>(a.v) + koff, k0, IT, a.sk);
-    __syncthreads();
-    float s[IT / 8][4], dp[IT / 8][4];
-    zero(s);
-    zero(dp);
-    mm_abt<D, IT / 8>(s, sQ, warp * 16, sK, 0, lane);   // Q K^T
-    mm_abt<D, IT / 8>(dp, sG, warp * 16, sV, 0, lane);  // dO V^T
-#pragma unroll
-    for (int n = 0; n < IT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int qpos = q0 + warp * 16 + g + 8 * half;
-        const float p = visible(a, qpos, k0 + n * 8 + 2 * t + (e & 1))
-                            ? expf(s[n][e] * a.scale - lse[half]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dlt[half]);
-      }
-    uint32_t sa[IT / 16][4];
-    to_a<IT / 16>(sa, dp);
-    mm_pb<D, IT / 16>(dq, sa, sK, 0, lane);  // dQ += dS K
-  }
-  store_acc<D>(static_cast<bf16*>(a.dq) + qoff, q0 + warp * 16, a.sq, dq, a.scale, lane);
-}
-
 template <int DMAX>
 constexpr size_t prep_smem() {
   return ((size_t)16 * (256 / DMAX) + BT) * (DMAX + 4) * sizeof(float);
@@ -892,45 +614,548 @@ cudaError_t launch(const FaBwdArgs& a, cudaStream_t stream) {
              dq_smem<DMAX>(), a, stream);
 }
 
-template <int D>
-cudaError_t launch_mma(const FaBwdArgs& a, cudaStream_t stream) {
-  constexpr size_t tile = (size_t)(D + 8) * sizeof(bf16);  // bytes a staged row
-  const dim3 q_grid((a.sq + MT - 1) / MT, a.b * a.hq);
-  cudaError_t err = run(bwd_prep_mma<D>, q_grid, 2 * MT * tile, a, stream);
-  if (err != cudaSuccess) return err;
-  if (a.sk > 0) {
-    err = run(bwd_dkdv_mma<D>, dim3((a.sk + MT - 1) / MT, a.b * a.hkv),
-              2 * (MT + IT) * tile + 2 * IT * sizeof(float), a, stream);
-    if (err != cudaSuccess) return err;
-  }
-  return run(bwd_dq_mma<D>, q_grid, 2 * (MT + IT) * tile, a, stream);
-}
-
 template <typename T>
 cudaError_t launch_width(const FaBwdArgs& a, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    if (a.variant == FAB_AUTO && a.d == 64) return launch_mma<64>(a, stream);
-    if (a.variant == FAB_AUTO && a.d == 128) return launch_mma<128>(a, stream);
-  }
   if (a.d <= 64) return launch<T, 64>(a, stream);
   if (a.d <= 128) return launch<T, 128>(a, stream);
   return launch<T, 256>(a, stream);
+}
+
+// ============================================================ tensor cores
+// The wgmma variant (the header's first): (a) bwd_prep_wgmma, (b)
+// bwd_dkdv_wgmma, (c) bwd_dq_wgmma, bf16 at head dims 64 and 128.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int WG_CONSUMERS = 256;                  // two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;     // and the producer warpgroup
+constexpr int WG_STAGES = 2;                       // depth of the streamed tiles' ring
+// registers a thread after setmaxnreg (at launch 384 threads get 168)
+constexpr int WG_PRODUCER_REGS = 24, WG_CONSUMER_REGS = 240;
+static_assert(WG_PRODUCER_REGS * 128 + WG_CONSUMER_REGS * WG_CONSUMERS <= 65536, "registers");
+constexpr int KV_ROWS = 128;   // (b): keys a CTA, 64 a consumer warpgroup
+constexpr int QT_ROWS = 64;    // (b): query rows a streamed tile
+constexpr int Q_ROWS = 128;    // (c): query rows a CTA, 64 a consumer warpgroup
+constexpr int KT_ROWS = 128;   // (c): keys a streamed tile
+constexpr int SQ_ALIGN = 128;  // rows of lse2 and Delta a (batch, head)
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct WgParams {
+  const float* lse2;
+  const float* delta;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int64_t dq_stride[3], dk_stride[3], dv_stride[3];
+  int32_t hq, hkv, sq, sk, sq_pad;
+  int32_t causal, has_window, window;
+  float scale, scale_log2;
+};
+
+__device__ __forceinline__ bool visible(int key, int q, const WgParams& p) {
+  return key < p.sk && (!p.causal || key <= q) &&
+         (!p.has_window || (long long)key > (long long)q - p.window);
+}
+
+// rows (key or query) row0 + 16 w + g and + 8 of a 64 x D accumulator, times
+// mul, as bf16 at base + row * row_stride; rows past nvalid are not written
+template <int D>
+__device__ __forceinline__ void store_rows_wg(bf16* base, int64_t row_stride, int row_a,
+                                              int nvalid, const float (&acc)[D / 2], float mul,
+                                              int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= nvalid) continue;
+    bf16* out = base + (int64_t)row * row_stride;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(out + 8 * i + 2 * t) =
+          pack_bf16(acc[4 * i + 2 * r] * mul, acc[4 * i + 2 * r + 1] * mul);
+  }
+}
+
+// ------------------------------------------------------------- (a) prep
+// 8 threads a row, 16 rows a block: Delta = rowsum(dO o O) and lse in base 2
+template <int D>
+__global__ void __launch_bounds__(128) bwd_prep_wgmma(const FaBwdWgArgs a) {
+  const int row = blockIdx.x * 16 + threadIdx.x / 8, c8 = threadIdx.x % 8;
+  const int bh = blockIdx.y, bi = bh / a.hq, h = bh % a.hq;
+  float sum = 0.f;
+  if (row < a.sq) {
+    const bf16* op = static_cast<const bf16*>(a.o) + bi * a.o_stride[0] + h * a.o_stride[1] +
+                     (int64_t)row * a.o_stride[2];
+    const bf16* gp = static_cast<const bf16*>(a.dout) + bi * a.dout_stride[0] +
+                     h * a.dout_stride[1] + (int64_t)row * a.dout_stride[2];
+#pragma unroll
+    for (int c = c8 * 8; c < D; c += 64) {
+      float ov[8], gv[8];
+      load_vec(op + c, ov);
+      load_vec(gp + c, gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum = fmaf(ov[e], gv[e], sum);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (c8 == 0 && row < a.sq_pad) {
+    const int64_t at = (int64_t)bh * a.sq_pad + row;
+    a.delta[at] = sum;
+    a.lse2[at] = row < a.sq ? a.lse[(int64_t)bh * a.sq + row] * LOG2E : pos_inf();
+  }
+}
+
+// ------------------------------------------------------------- (b) dK, dV
+template <int D>
+struct DkdvTile {
+  static constexpr int PANELS = D / PANEL_COLS;
+  static constexpr uint32_t KV_PANEL = KV_ROWS * 128;  // bytes of a 64-column panel of K or V
+  static constexpr uint32_t KV_BYTES = KV_PANEL * PANELS;
+  static constexpr uint32_t QT_PANEL = QT_ROWS * 128;  // and of a Q or dO tile
+  static constexpr uint32_t QT_BYTES = QT_PANEL * PANELS;
+  static constexpr uint32_t ROW_BYTES = QT_ROWS * 4;   // a tile's lse2 or Delta
+  // a stage: Q, dO, lse2, Delta, 1024-byte aligned
+  static constexpr uint32_t STAGE_BYTES = (2 * QT_BYTES + 2 * ROW_BYTES + 1023) / 1024 * 1024;
+  // K, V, then the stages; 1024 more to align the base
+  static constexpr size_t SMEM = 2 * KV_BYTES + (size_t)WG_STAGES * STAGE_BYTES + 1024;
+  static_assert(SMEM <= 232448 - 64, "a block's shared memory, the barriers beside it");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do, const WgParams p) {
+  using T = DkdvTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // bars[0]: K and V full; then per stage: full, empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];
+
+  const uint32_t sK = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + T::KV_BYTES;
+  auto stage = [&](int s) { return sV + T::KV_BYTES + (uint32_t)s * T::STAGE_BYTES; };
+  auto bar = [&](int i) { return smem_addr(&bars[i]); };
+  auto full = [&](int s) { return bar(1 + s); };
+  auto empty = [&](int s) { return bar(1 + WG_STAGES + s); };
+
+  const int bk = blockIdx.x;
+  const int bi = bk / p.hkv, hk = bk % p.hkv;
+  const int group = p.hq / p.hkv;
+  const int k0 = blockIdx.y * KV_ROWS;  // causal: the first key tile sees every query
+  const int k_hi = min(k0 + KV_ROWS, p.sk) - 1;
+  // the query tiles that can see a key of this tile, for each head of the group
+  const int q_begin = p.causal ? k0 : 0;
+  long long q_end = p.sq;
+  if (p.has_window) q_end = min(q_end, (long long)k_hi + p.window);
+  const int qt_begin = q_begin / QT_ROWS;
+  const int n_qt = q_end > q_begin ? (int)((q_end + QT_ROWS - 1) / QT_ROWS) - qt_begin : 0;
+  const int n_it = group * n_qt;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMERS / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG_CONSUMERS) {
+    // the producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (tid == WG_CONSUMERS && n_it > 0) {
+      mbar_expect_tx(bar(0), 2 * T::KV_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < T::PANELS; ++pn) {
+        tma_load(sK + pn * T::KV_PANEL, &tm_k, pn * PANEL_COLS, k0, hk, bi, bar(0));
+        tma_load(sV + pn * T::KV_PANEL, &tm_v, pn * PANEL_COLS, k0, hk, bi, bar(0));
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES) mbar_wait(empty(s), ((it / WG_STAGES) - 1) & 1);
+        const int h = hk * group + it / n_qt;
+        const int q0 = (qt_begin + it % n_qt) * QT_ROWS;
+        const uint32_t sQ = stage(s), sG = sQ + T::QT_BYTES, sL = sG + T::QT_BYTES;
+        mbar_expect_tx(full(s), 2 * T::QT_BYTES + 2 * T::ROW_BYTES);
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          tma_load(sQ + pn * T::QT_PANEL, &tm_q, pn * PANEL_COLS, q0, h, bi, full(s));
+          tma_load(sG + pn * T::QT_PANEL, &tm_do, pn * PANEL_COLS, q0, h, bi, full(s));
+        }
+        const int64_t rows = ((int64_t)bi * p.hq + h) * p.sq_pad + q0;
+        bulk_load(sL, p.lse2 + rows, T::ROW_BYTES, full(s));
+        bulk_load(sL + T::ROW_BYTES, p.delta + rows, T::ROW_BYTES, full(s));
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  // a consumer thread: warpgroup wg holds keys kw0 .. kw0 + 63 of the tile;
+  // this thread holds keys key_a and key_a + 8 (the accumulator layout)
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + wg * 64;
+  const int key_a = kw0 + ((tid % 128) / 32) * 16 + g;
+  uint8_t* const base = smem_raw + (sK - smem_addr(smem_raw));  // generic address of sK
+
+  float dv[D / 2], dk[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+
+  if (n_it > 0) mbar_wait(bar(0), 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % WG_STAGES;
+    const uint32_t ph = (it / WG_STAGES) & 1;
+    const int q0 = (qt_begin + it % n_qt) * QT_ROWS;
+    const uint32_t sQ = stage(s), sG = sQ + T::QT_BYTES;
+    const float* sL = reinterpret_cast<const float*>(base + (sG + T::QT_BYTES - sK));
+    const float* sD = sL + QT_ROWS;
+    // every key of this warpgroup masked for every query of the tile
+    const bool none = kw0 >= p.sk || (p.causal && kw0 > q0 + QT_ROWS - 1) ||
+                      (p.has_window && (long long)kw0 + 63 <= (long long)q0 - p.window);
+    mbar_wait(full(s), ph);
+    if (!none) {
+      const bool edge = (p.causal && kw0 + 63 > q0) ||
+                        (p.has_window && (long long)kw0 <= (long long)q0 + QT_ROWS - 1 - p.window);
+      // S^T = K Q^T and dP^T = V dO^T, 64 keys x QT_ROWS queries
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, smem_desc(sK + (kk / 4) * T::KV_PANEL + wg * 64 * 128 + (kk % 4) * 32, 16, 1024),
+                     smem_desc(sQ + (kk / 4) * T::QT_PANEL + (kk % 4) * 32, 16, 1024), 1);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dpt, smem_desc(sV + (kk / 4) * T::KV_PANEL + wg * 64 * 128 + (kk % 4) * 32, 16, 1024),
+                     smem_desc(sG + (kk / 4) * T::QT_PANEL + (kk % 4) * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp2(S^T scale log2 e - lse2) and dS^T = P^T o (dP^T - Delta),
+      // as bf16 A fragments over the queries: pa[kk] and sa[kk] cover
+      // queries 16 kk .. +15
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = (j >> 1) & 1, c = 8 * (j / 4) + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(sL + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(sD + c);
+        float p0 = exp2f(fmaf(st[j], p.scale_log2, -l2.x));
+        float p1 = exp2f(fmaf(st[j + 1], p.scale_log2, -l2.y));
+        if (edge) {
+          if (!visible(key_a + 8 * r, q0 + c, p)) p0 = 0.f;
+          if (!visible(key_a + 8 * r, q0 + c + 1, p)) p1 = 0.f;
+        }
+        pa[j / 8][(j / 2) % 4] = pack_bf16(p0, p1);
+        sa[j / 8][(j / 2) % 4] = pack_bf16(p0 * (dpt[j] - d2.x), p1 * (dpt[j + 1] - d2.y));
+      }
+      // dV += P^T dO and dK += dS^T Q
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(sa[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT_ROWS / 16; ++kk) {
+        wgmma_rs<D>(dv, pa[kk], smem_desc(sG + kk * 16 * 128, T::QT_PANEL, 1024));
+        wgmma_rs<D>(dk, sa[kk], smem_desc(sQ + kk * 16 * 128, T::QT_PANEL, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      // the fragments stay live until the products that read them are done
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(sa[kk]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));  // this warp is done with the stage
+  }
+
+  store_rows_wg<D>(p.dv + bi * p.dv_stride[0] + hk * p.dv_stride[1], p.dv_stride[2], key_a, p.sk,
+                   dv, 1.f, t);
+  store_rows_wg<D>(p.dk + bi * p.dk_stride[0] + hk * p.dk_stride[1], p.dk_stride[2], key_a, p.sk,
+                   dk, p.scale, t);
+}
+
+// ------------------------------------------------------------------- (c) dQ
+template <int D>
+struct DqTile {
+  static constexpr int PANELS = D / PANEL_COLS;
+  static constexpr uint32_t Q_PANEL = Q_ROWS * 128;   // bytes of a 64-column panel of Q or dO
+  static constexpr uint32_t Q_BYTES = Q_PANEL * PANELS;
+  static constexpr uint32_t KT_PANEL = KT_ROWS * 128;  // and of a K or V tile
+  static constexpr uint32_t KT_BYTES = KT_PANEL * PANELS;
+  // Q, dO, then STAGES x (K, V), each 1024-byte aligned; 1024 more to align the base
+  static constexpr size_t SMEM = 2 * Q_BYTES + (size_t)WG_STAGES * 2 * KT_BYTES + 1024;
+  static_assert(SMEM <= 232448 - 64, "a block's shared memory, the barriers beside it");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const WgParams p) {
+  using T = DqTile<D>;
+  constexpr int NS = KT_ROWS / 2;  // S values a consumer thread holds (two rows)
+  extern __shared__ uint8_t smem_raw[];
+  // bars[0]: Q and dO full; then per stage: full, empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];
+
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + T::Q_BYTES;
+  auto k_tile = [&](int s) { return sG + T::Q_BYTES + (uint32_t)s * 2 * T::KT_BYTES; };
+  auto bar = [&](int i) { return smem_addr(&bars[i]); };
+  auto full = [&](int s) { return bar(1 + s); };
+  auto empty = [&](int s) { return bar(1 + WG_STAGES + s); };
+
+  const int bh = blockIdx.x;
+  const int bi = bh / p.hq, h = bh % p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int n_qt = (p.sq + Q_ROWS - 1) / Q_ROWS;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * Q_ROWS;  // most causal work first
+
+  // kv tiles that can hold a visible key for some row of this q tile
+  const int q_hi = min(q0 + Q_ROWS, p.sq) - 1;
+  long long kv_end = p.sk;
+  if (p.causal) kv_end = min(kv_end, (long long)q_hi + 1);
+  long long kv_begin = 0;
+  if (p.has_window) kv_begin = max(0LL, (long long)q0 - p.window + 1);
+  int kt_begin = 0, n_kt = 0;
+  if (kv_end > kv_begin) {
+    kt_begin = (int)(kv_begin / KT_ROWS);
+    n_kt = (int)((kv_end + KT_ROWS - 1) / KT_ROWS) - kt_begin;
+  }
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (tid == WG_CONSUMERS && n_kt > 0) {
+      mbar_expect_tx(bar(0), 2 * T::Q_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < T::PANELS; ++pn) {
+        tma_load(sQ + pn * T::Q_PANEL, &tm_q, pn * PANEL_COLS, q0, h, bi, bar(0));
+        tma_load(sG + pn * T::Q_PANEL, &tm_do, pn * PANEL_COLS, q0, h, bi, bar(0));
+      }
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES) mbar_wait(empty(s), ((it / WG_STAGES) - 1) & 1);
+        const int k0 = (kt_begin + it) * KT_ROWS;
+        const uint32_t sK = k_tile(s), sV = sK + T::KT_BYTES;
+        mbar_expect_tx(full(s), 2 * T::KT_BYTES);
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          tma_load(sK + pn * T::KT_PANEL, &tm_k, pn * PANEL_COLS, k0, hk, bi, full(s));
+          tma_load(sV + pn * T::KT_PANEL, &tm_v, pn * PANEL_COLS, k0, hk, bi, full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+  // warpgroup wg holds query rows wg_lo .. wg_lo + 63; this thread rows
+  // row_a and row_a + 8
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wg_lo = q0 + wg * 64;
+  const int row_a = wg_lo + ((tid % 128) / 32) * 16 + g;
+  float l2[2], dl[2];  // rows past Sq: lse2 +inf, Delta 0 (the prep's padding)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = (int64_t)bh * p.sq_pad + row_a + 8 * r;
+    l2[r] = p.lse2[at];
+    dl[r] = p.delta[at];
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  if (n_kt > 0) mbar_wait(bar(0), 0);
+  for (int it = 0; it < n_kt; ++it) {
+    const int s = it % WG_STAGES;
+    const uint32_t ph = (it / WG_STAGES) & 1;
+    const int k0 = (kt_begin + it) * KT_ROWS;
+    const uint32_t sK = k_tile(s), sV = sK + T::KT_BYTES;
+    // every key of the tile masked for every row of this warpgroup
+    const bool none = wg_lo >= p.sq || (p.causal && k0 > wg_lo + 63) ||
+                      (p.has_window && (long long)k0 + KT_ROWS - 1 <= (long long)wg_lo - p.window);
+    mbar_wait(full(s), ph);
+    if (!none) {
+      const bool edge = (k0 + KT_ROWS > p.sk) || (p.causal && k0 + KT_ROWS - 1 > wg_lo) ||
+                        (p.has_window && (long long)k0 <= (long long)wg_lo + 63 - p.window);
+      // S = Q K^T and dP = dO V^T, 64 rows x KT_ROWS keys
+      float sc[NS], dp[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT_ROWS>(sc, smem_desc(sQ + (kk / 4) * T::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32, 16, 1024),
+                          smem_desc(sK + (kk / 4) * T::KT_PANEL + (kk % 4) * 32, 16, 1024));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT_ROWS>(dp, smem_desc(sG + (kk / 4) * T::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32, 16, 1024),
+                          smem_desc(sV + (kk / 4) * T::KT_PANEL + (kk % 4) * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P = exp2(S scale log2 e - lse2) and dS = P o (dP - Delta), as bf16
+      // A fragments over the keys
+      uint32_t sa[KT_ROWS / 16][4];
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        const int r = (j >> 1) & 1, key = k0 + 8 * (j / 4) + 2 * t;
+        float p0 = exp2f(fmaf(sc[j], p.scale_log2, -l2[r]));
+        float p1 = exp2f(fmaf(sc[j + 1], p.scale_log2, -l2[r]));
+        if (edge) {
+          if (!visible(key, row_a + 8 * r, p)) p0 = 0.f;
+          if (!visible(key + 1, row_a + 8 * r, p)) p1 = 0.f;
+        }
+        sa[j / 8][(j / 2) % 4] = pack_bf16(p0 * (dp[j] - dl[r]), p1 * (dp[j + 1] - dl[r]));
+      }
+      // dQ += dS K
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < KT_ROWS / 16; ++kk) fence_regs(sa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT_ROWS / 16; ++kk)
+        wgmma_rs<D>(dq, sa[kk], smem_desc(sK + kk * 16 * 128, T::KT_PANEL, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < KT_ROWS / 16; ++kk) fence_regs(sa[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  store_rows_wg<D>(p.dq + bi * p.dq_stride[0] + h * p.dq_stride[1], p.dq_stride[2], row_a, p.sq,
+                   dq, p.scale, t);
+}
+
+template <typename Kernel>
+int run_wg(Kernel kernel, dim3 grid, size_t smem, const CUtensorMap (&m)[4], const WgParams& p,
+           cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, WG_THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_wgmma(const FaBwdWgArgs& a, cudaStream_t stream) {
+  WgParams p;
+  p.lse2 = a.lse2;
+  p.delta = a.delta;
+  p.dq = static_cast<bf16*>(a.dq);
+  p.dk = static_cast<bf16*>(a.dk);
+  p.dv = static_cast<bf16*>(a.dv);
+  for (int i = 0; i < 3; ++i) {
+    p.dq_stride[i] = a.dq_stride[i];
+    p.dk_stride[i] = a.dk_stride[i];
+    p.dv_stride[i] = a.dv_stride[i];
+  }
+  p.hq = a.hq;
+  p.hkv = a.hkv;
+  p.sq = a.sq;
+  p.sk = a.sk;
+  p.sq_pad = a.sq_pad;
+  p.causal = a.causal;
+  p.has_window = a.has_window;
+  p.window = a.window;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * LOG2E;
+
+  bwd_prep_wgmma<D><<<dim3(a.sq_pad / 16, a.b * a.hq), 128, 0, stream>>>(a);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  CUtensorMap m[4];
+  if (a.sk > 0) {
+    err = make_map(&m[0], a.k, a.b, a.hkv, a.sk, D, a.k_stride, KV_ROWS);
+    if (err == 0) err = make_map(&m[1], a.v, a.b, a.hkv, a.sk, D, a.v_stride, KV_ROWS);
+    if (err == 0) err = make_map(&m[2], a.q, a.b, a.hq, a.sq, D, a.q_stride, QT_ROWS);
+    if (err == 0) err = make_map(&m[3], a.dout, a.b, a.hq, a.sq, D, a.dout_stride, QT_ROWS);
+    if (err == 0)
+      err = run_wg(bwd_dkdv_wgmma<D>, dim3(a.b * a.hkv, (a.sk + KV_ROWS - 1) / KV_ROWS),
+                   DkdvTile<D>::SMEM, m, p, stream);
+    if (err != 0) return err;
+  }
+  err = make_map(&m[0], a.q, a.b, a.hq, a.sq, D, a.q_stride, Q_ROWS);
+  if (err == 0) err = make_map(&m[1], a.dout, a.b, a.hq, a.sq, D, a.dout_stride, Q_ROWS);
+  if (err == 0) err = make_map(&m[2], a.k, a.b, a.hkv, a.sk, D, a.k_stride, KT_ROWS);
+  if (err == 0) err = make_map(&m[3], a.v, a.b, a.hkv, a.sk, D, a.v_stride, KT_ROWS);
+  if (err != 0) return err;
+  return run_wg(bwd_dq_wgmma<D>, dim3(a.b * a.hq, a.sq_pad / Q_ROWS), DqTile<D>::SMEM, m, p,
+                stream);
 }
 
 }  // namespace
 
 extern "C" int fa_bwd_args_size() { return (int)sizeof(FaBwdArgs); }
 
+extern "C" int fa_bwd_wgmma_args_size() { return (int)sizeof(FaBwdWgArgs); }
+
 extern "C" int fa_bwd_max_head_dim() { return FAB_MAX_HEAD_DIM; }
 
+// The CUDA-core variant on `stream`; returns 0 or cudaGetLastError() of a launch.
 extern "C" int flash_attention_bwd_launch(const FaBwdArgs* a, void* stream) {
   if (a->d <= 0 || a->d > FAB_MAX_HEAD_DIM || a->d % 8 || a->hkv <= 0 || a->hq % a->hkv ||
-      a->sq <= 0 || a->sk < 0 || a->b * a->hq <= 0 || a->b * a->hq > 65535 ||
-      (a->variant != FAB_AUTO && a->variant != FAB_CUDA_CORE))
+      a->sq <= 0 || a->sk < 0 || a->b * a->hq <= 0 || a->b * a->hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = a->dtype == FAB_BF16 ? launch_width<__nv_bfloat16>(*a, s)
                     : a->dtype == FAB_F32 ? launch_width<float>(*a, s)
                                           : cudaErrorInvalidValue;
   return (int)err;
+}
+
+// The wgmma variant on `stream`; returns 0, cudaGetLastError() of a launch,
+// or one of hopper_wgmma.cuh's codes.
+extern "C" int fa_bwd_wgmma_launch(const FaBwdWgArgs* a, void* stream) {
+  if ((a->d != 64 && a->d != 128) || a->hkv <= 0 || a->hq % a->hkv || a->sq <= 0 || a->sk < 0 ||
+      a->b * a->hq <= 0 || a->b * a->hq > 65535 || a->lse == nullptr ||
+      a->sq_pad != (a->sq + SQ_ALIGN - 1) / SQ_ALIGN * SQ_ALIGN || a->sq_pad / Q_ROWS > 65535 ||
+      (a->sk + KV_ROWS - 1) / KV_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a->d == 64 ? launch_wgmma<64>(*a, s) : launch_wgmma<128>(*a, s);
 }

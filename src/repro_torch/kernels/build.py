@@ -3,7 +3,8 @@ interface, at first use.
 
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``repro_torch/_build/lib<name>_<hash>.so`` (git-ignored), keyed by the
-source's hash so that an edited source rebuilds.  The kernel modules load
+hash of the source and of ``csrc/*.cuh`` so that an edited source or shared
+header rebuilds.  The kernel modules load
 the result with ``ctypes``.  Builds of different sources may run at once
 (one thread each): ``nvcc`` runs as a subprocess.
 """
@@ -43,7 +44,10 @@ def build_library(name: str, verbose_ptxas: bool = False) -> pathlib.Path:
     ``verbose_ptxas`` rebuilds even when the library exists, to record what
     ``ptxas`` says of registers and spills in ``BUILD_LOG[name]``."""
     source = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source may include
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{tag}.so"
     if out.exists() and not verbose_ptxas:
         BUILD_LOG.setdefault(name, {"seconds": None, "ptxas": ""})["path"] = str(out)

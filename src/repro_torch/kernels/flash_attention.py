@@ -36,7 +36,10 @@ The pieces, beside each other:
 
   Where an operand requires a gradient, the call goes through an autograd
   ``Function``: its forward is the call above and saves q, k, v and the
-  output; its backward is ``kernels.flash_attention_bwd``: the kernels of
+  output, and, where the backward's wgmma kernels will read it (bf16 at
+  head dim 64 or 128), each row's logsumexp, which the wgmma kernel writes
+  beside its output on request (``with_lse``); its backward is
+  ``kernels.flash_attention_bwd``: the kernels of
   ``csrc/flash_attention_bwd.cu`` on CUDA tensors, the plain backward on
   CPU tensors or when the forward ran inside ``plain_version()``.
 * ``attention`` — the oracle: softmax over the whole masked score matrix,
@@ -44,6 +47,10 @@ The pieces, beside each other:
 * ``attention_blocked`` — the same online-softmax tiling as the TPU kernel
   over (512, 1024) tiles, ``-1e30`` for masked scores and
   ``acc / max(l, 1e-30)``.
+* ``logsumexp`` — each row's logsumexp of its scaled visible scores, in
+  natural log, ``+inf`` for a row that sees no key: what the wgmma kernel
+  saves for the backward, and what ``flash_attention_plain(with_lse=True)``
+  returns beside its output.
 
 Both plain versions compute in float32 and cast back.  Both kernels
 replace ``repro/kernels/flash_attention.py::flash_attention_pallas`` (line
@@ -168,13 +175,36 @@ def attention_blocked(
     return out
 
 
-def flash_attention_plain(q, k, v, causal=True, window=None, scale=None) -> torch.Tensor:
+def logsumexp(q, k, causal=True, window=None, scale=None) -> torch.Tensor:
+    """(B, Hq, Sq) float32: ln of the sum of exp(scale * q . k) over each
+    row's visible keys, ``+inf`` where a row sees none (so that
+    exp(s - lse) is exactly 0 there).  The unit and the no-key value of the
+    wgmma kernel's saved logsumexp."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s = (q.float() @ _kv_heads(k, hq // k.shape[1]).transpose(-1, -2)) * scale
+    return _masked_logsumexp(s, _positions_mask(0, sq, 0, sk, causal, window, q.device))
+
+
+def _masked_logsumexp(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` of scaled scores ``s`` (..., Sq, Sk) over ``mask``."""
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(mask.any(-1), lse, float("inf"))
+
+
+def flash_attention_plain(q, k, v, causal=True, window=None, scale=None, with_lse=False):
     """The plain version the wrapper runs, routed as the reference's ``ref``
-    mode: blocked for long sequences, the oracle otherwise."""
+    mode: blocked for long sequences, the oracle otherwise.  With
+    ``with_lse``, (out, ``logsumexp``)."""
     sq, sk = q.shape[2], k.shape[2]
     if sq >= 1024 and sq % 512 == 0 and sk % 1024 == 0:
-        return attention_blocked(q, k, v, causal=causal, window=window, scale=scale)
-    return attention(q, k, v, causal=causal, window=window, scale=scale)
+        out = attention_blocked(q, k, v, causal=causal, window=window, scale=scale)
+    else:
+        out = attention(q, k, v, causal=causal, window=window, scale=scale)
+    if with_lse:
+        return out, logsumexp(q, k, causal=causal, window=window, scale=scale)
+    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -186,12 +216,13 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "cuda_core"
 
 
-def tma_strides(x: torch.Tensor, name: str) -> list:
+def tma_strides(x: torch.Tensor, name: str, kernel: str = "flash_attention wgmma kernel") -> list:
     """(batch, head, seq) strides, in elements, of a (B, H, S, D) operand
     as a TMA tensor map takes it: the head dim contiguous, the base and
     every other stride a multiple of 16 bytes.  A dim of size 1 is never
     stepped, so its stride is given as the packed one.  Raises
-    ``ValueError`` on any other layout (the wgmma kernel copies nothing)."""
+    ``ValueError``, naming ``kernel``, on any other layout (the wgmma
+    kernels copy nothing)."""
     per16 = 16 // x.element_size()
     strides = []
     packed = x.shape[-1]
@@ -200,10 +231,10 @@ def tma_strides(x: torch.Tensor, name: str) -> list:
         strides.insert(0, st)
         packed *= x.shape[dim]
     if x.stride(-1) != 1 and x.shape[-1] > 1:
-        raise ValueError(f"flash_attention wgmma kernel: {name}'s head dim is not contiguous "
+        raise ValueError(f"{kernel}: {name}'s head dim is not contiguous "
                          f"(strides {tuple(x.stride())})")
     if x.data_ptr() % 16 or any(st % per16 or st <= 0 for st in strides):
-        raise ValueError(f"flash_attention wgmma kernel: {name} (strides {tuple(x.stride())}, "
+        raise ValueError(f"{kernel}: {name} (strides {tuple(x.stride())}, "
                          f"base {x.data_ptr() % 16} bytes past 16) is not a layout TMA takes: "
                          "the base and each stride must be multiples of 16 bytes")
     return strides
@@ -340,7 +371,7 @@ def flash_attention_cuda_core(q, k, v, causal=True, window=None, scale=None) -> 
 class _FaWgArgs(ctypes.Structure):
     """Mirror of ``FaWgArgs`` in ``csrc/flash_attention_wgmma.cu``."""
 
-    _fields_ = _FaArgs._fields_[:-2] + [("scale", ctypes.c_float)]
+    _fields_ = _FaArgs._fields_[:-2] + [("scale", ctypes.c_float), ("lse", ctypes.c_void_p)]
 
 
 _wg_lib = None
@@ -361,10 +392,12 @@ def _wgmma_library():
         return _wg_lib
 
 
-def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None) -> torch.Tensor:
+def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None, with_lse=False):
     """The tensor-core kernel (``csrc/flash_attention_wgmma.cu``) on CUDA
     tensors: bfloat16 with head dim 64, 128 or 256, in a layout TMA takes
-    (``tma_strides``).  One counted launch under ``"flash_attention_wgmma"``."""
+    (``tma_strides``).  With ``with_lse``, (out, lse): the same launch also
+    writes each row's logsumexp, (B, Hq, Sq) float32 in ``logsumexp``'s
+    unit.  One counted launch under ``"flash_attention_wgmma"``."""
     kernel = "flash_attention wgmma kernel"
     _check_kernel_operands(q, k, v, window, kernel)
     b, hq, sq, d = q.shape
@@ -374,16 +407,18 @@ def flash_attention_wgmma(q, k, v, causal=True, window=None, scale=None) -> torc
     operands = {f: (x, tma_strides(x, f)) for f, x in (("q", q), ("k", k), ("v", v))}
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     operands["o"] = (out, list(out.stride()[:3]))
     args = _launch_args(_FaWgArgs, operands, q, k, causal, window, scale)
+    args.lse = lse.data_ptr() if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _wgmma_library().fa_wgmma_launch(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: error {err}")
     LAUNCHES["flash_attention_wgmma"] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def _use_plain(q: torch.Tensor) -> bool:
@@ -406,19 +441,28 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, o)
+        from repro_torch.kernels import flash_attention_bwd as bwd
+
+        lse = None
+        if (not _use_plain(q) and q.device.type == "cuda"
+                and bwd.bwd_variant(q.dtype, q.shape[-1]) == "wgmma"):
+            # the backward's wgmma kernels read the logsumexp this launch saves
+            o, lse = flash_attention_wgmma(q, k, v, causal=causal, window=window, scale=scale,
+                                           with_lse=True)
+        else:
+            o = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask, ctx.plain = (causal, window, scale), _use_plain(q)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
         from repro_torch.kernels import flash_attention_bwd as bwd
 
         dq, dk, dv = bwd.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
-                                             scale=scale, plain=ctx.plain)
+                                             scale=scale, lse=lse, plain=ctx.plain)
         return dq, dk, dv, None, None, None
 
 

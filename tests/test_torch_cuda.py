@@ -546,6 +546,76 @@ def test_flash_backward_kernel_matches_plain_version(card, variant, dtype, hq, h
         assert float((g.float() - w.float()).abs().max()) <= rel * float(w.float().abs().max())
 
 
+# the bf16 cases of chip_smoke.py's phase 19 that take the wgmma backward:
+# (b, hq, hkv, sq, sk, d, causal, window)
+WGMMA_BWD_CASES = {
+    "qwen3-4b": (2, 32, 8, 2048, 2048, 128, True, None),
+    "D 64 non-causal Sq 77 Sk 1,000": (2, 8, 2, 77, 1000, 64, False, None),
+    "window 64 ragged S 500": (2, 8, 2, 500, 500, 128, True, 64),
+    "rows that see no key": (1, 4, 2, 100, 8, 128, True, 4),
+}
+
+
+def _views(card, b, hq, hkv, sq, sk, d, seed):
+    """bf16 q, k, v and do as the (b, s, h, d) tensors attend_full projects,
+    seen as (b, h, s, d)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=g, device=card).to(torch.bfloat16).transpose(1, 2)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk), (hq, sq))]
+
+
+@pytest.mark.parametrize("case", list(WGMMA_BWD_CASES), ids=list(WGMMA_BWD_CASES))
+def test_wgmma_backward_on_views_matches_plain_version(card, case):
+    """The wgmma backward, given the wgmma forward's saved logsumexp, on the
+    (b, s, h, d) views: within 2e-2 of the largest element of
+    ``flash_attention_bwd_plain``'s gradient, two launches the same bits,
+    the gradients in their operands' layout, no memory requested beyond the
+    outputs and the (B, Hq, Sq rounded up to 128) float32 scratch (no
+    operand copied), a zero gradient for a row that sees no key; without
+    the logsumexp the same bits; and the CUDA-core variant runs on the same
+    input within the same tolerance."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    b, hq, hkv, sq, sk, d, causal, window = WGMMA_BWD_CASES[case]
+    q, k, v, do = _views(card, b, hq, hkv, sq, sk, d, seed=11)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_wgmma(q, k, v, with_lse=True, **kw)
+    requested = lambda: torch.cuda.memory_stats()["requested_bytes.all.allocated"]  # noqa: E731
+    base = requested()
+    got = fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    sq_pad = -(-sq // fab.SQ_ALIGN) * fab.SQ_ALIGN
+    assert requested() - base == sum(g.numel() * 2 for g in got) + 2 * b * hq * sq_pad * 4
+    again = fab.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    unsaved = fab.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    core = fab.flash_attention_bwd_cuda(q, k, v, o, do, variant="cuda_core", **kw)
+    want = fab.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    for g, a, u, c, w, x in zip(got, again, unsaved, core, want, (q, k, v)):
+        assert g.stride() == x.stride() and torch.equal(g, a) and torch.equal(g, u)
+        ref = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * ref
+        assert float((c.float() - w.float()).abs().max()) <= 2e-2 * ref
+    if case == "rows that see no key":
+        blind = torch.arange(sq, device=card) - window + 1 >= sk
+        assert blind.any() and (got[0][:, :, blind] == 0).all()
+
+
+def test_wgmma_forward_saves_the_logsumexp(card):
+    """``with_lse``: the same output bits, and each row's logsumexp as
+    ``flash_attention.logsumexp`` computes it (+inf for a row that sees no
+    key) within float32 rounding of sums in another order."""
+    for b, hq, hkv, sq, sk, d, causal, window in WGMMA_BWD_CASES.values():
+        q, k, v, _ = _views(card, b, hq, hkv, sq, sk, d, seed=12)
+        before = fa.LAUNCHES["flash_attention_wgmma"]
+        out, lse = fa.flash_attention_wgmma(q, k, v, causal=causal, window=window, with_lse=True)
+        plain_out = fa.flash_attention_wgmma(q, k, v, causal=causal, window=window)
+        assert fa.LAUNCHES["flash_attention_wgmma"] == before + 2
+        assert torch.equal(out, plain_out) and lse.shape == (b, hq, sq)
+        want = fa.logsumexp(q, k, causal=causal, window=window)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want)) and (lse[torch.isinf(lse)] > 0).all()
+        finite = torch.isfinite(want)
+        torch.testing.assert_close(lse[finite], want[finite], atol=1e-4, rtol=1e-5)
+
+
 def test_flash_gradient_through_the_kernels(card):
     """Autograd through ``flash_attention`` on the (b, s, h, d) views the
     model passes: one forward and one backward launch, the gradient of the

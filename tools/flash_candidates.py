@@ -91,6 +91,7 @@ def main(argv=None) -> int:
         wants = [fa.flash_attention(q.float(), k.float(), v.float(), **kw)
                  for q, k, v, kw in calls]
     source = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    headers = {h.name: h.read_text() for h in build.CSRC.glob("*.cuh")}  # what it includes
     names = list(CANDIDATES)
     result = {"card": cs.card_line(), "calls": [
         [list(q.shape), list(k.shape), kw.get("causal"), kw.get("window")]
@@ -98,6 +99,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         build.CSRC = build.pathlib.Path(tmp)
         build.BUILD_DIR = build.CSRC / "_build"
+        for name, text in headers.items():
+            (build.CSRC / name).write_text(text)
         for i, name in enumerate(names):
             text = source
             for old, new in CANDIDATES[name]:
